@@ -6,10 +6,13 @@ in PyTorch with hand-written CUDA kernels for NVIDIA Hopper.  The module
 layout and function names follow grackle_tpu's, so each module has an
 obvious counterpart.  This package imports neither jax nor grackle_tpu.
 
-The ported slice is the monolithic ``solve_chemistry`` for
-primordial_chemistry 1-3 with dust, metal (new-style Cloudy) cooling and
-the CMB floor; its network region runs as csrc/network_update.cu on CUDA
-tensors and as the plain twin ops/network.py on CPU tensors.
+The ported slices cover ``solve_chemistry`` (monolithic and compacted)
+for primordial_chemistry 0-3 with dust, metal (new-style Cloudy) cooling,
+the CMB floor and the UV background, ``solve_chemistry_grid`` and the
+derived fields.  Entry points put their tensors on the CUDA card unless
+the caller passes ``device="cpu"``.  Each subcycle's network region runs
+as csrc/network_update.cu on CUDA tensors and as the plain twin
+ops/network.py on CPU tensors.
 """
 
 __version__ = "0.1.0"
@@ -22,8 +25,14 @@ from .rates.tables import RateTables, build_rate_tables  # noqa: F401
 from .api import (  # noqa: F401
     ChemistryData,
     GrackleContext,
+    calculate_cooling_time,
+    calculate_dust_temperature,
+    calculate_gamma,
+    calculate_pressure,
+    calculate_temperature,
     initialize,
     solve_chemistry,
+    solve_chemistry_grid,
     solve_path,
 )
 from .fluid_container import FluidContainer  # noqa: F401

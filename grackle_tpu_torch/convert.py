@@ -14,9 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .api import GrackleContext
+from .api import GrackleContext, resolve_device
 from .config import PARAMETER_REGISTRY, ChemistryConfig, resolve_config
 from .data.cloudy import cloudy_table_from_numpy
+from .data.uvb import UVBTable
 from .rates.tables import tables_from_arrays
 from .units import CodeUnits
 
@@ -26,9 +27,11 @@ _UNIT_FIELDS = ["comoving_coordinates", "density_units", "length_units",
 
 def context_from_numpy(config_params, units, tables: dict,
                        cloudy_primordial: dict, cloudy_metal: dict,
-                       device="cpu", dtype=torch.float64,
-                       cloudy_data_new: bool = True) -> GrackleContext:
-    """A GrackleContext on ``device`` in ``dtype`` from host data.
+                       device="cuda", dtype=torch.float64,
+                       cloudy_data_new: bool = True,
+                       uvb=None) -> GrackleContext:
+    """A GrackleContext on ``device`` (the CUDA card unless
+    ``device="cpu"``) in ``dtype`` from host data.
 
     config_params: parameter name -> value (every registry name; names the
         registry does not know are ignored).
@@ -40,6 +43,8 @@ def context_from_numpy(config_params, units, tables: dict,
         ``grid_rank``, ``grid_dimension`` and the ``par*``/``cooling``/
         ``heating``/``mmw`` arrays (log10, code units); ``{}`` or
         ``grid_rank`` 0 for an unused table.
+    uvb: the UVB table as a dict of ``info`` and float64 arrays
+        (data/uvb.UVBTable fields), or None.
     """
     params = {k: v for k, v in dict(config_params).items()
               if k in PARAMETER_REGISTRY}
@@ -47,7 +52,7 @@ def context_from_numpy(config_params, units, tables: dict,
     if dtype != (torch.float64 if cfg.precision == 64 else torch.float32):
         cfg = dataclasses.replace(
             cfg, precision=64 if dtype == torch.float64 else 32)
-    device = torch.device(device)
+    device = resolve_device(device)
     host = {name: (np.asarray(v) if not np.isscalar(v) else v)
             for name, v in tables.items()}
     return GrackleContext(
@@ -58,6 +63,10 @@ def context_from_numpy(config_params, units, tables: dict,
         cloudy_primordial=cloudy_table_from_numpy(cloudy_primordial,
                                                   device, dtype),
         cloudy_metal=cloudy_table_from_numpy(cloudy_metal, device, dtype),
+        uvb=None if uvb is None else UVBTable(**{
+            k: (v if k == "info" or v is None
+                else np.asarray(v, dtype=np.float64))
+            for k, v in uvb.items()}),
         cloudy_data_new=cloudy_data_new,
         device=device,
     )

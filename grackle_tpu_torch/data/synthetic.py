@@ -1,16 +1,18 @@
-"""Synthetic grackle-format Cloudy tables, built in memory.
+"""Synthetic grackle-format Cloudy and UVB tables, built in memory.
 
 Port of the NumPy table builders of grackle_tpu/data/synthetic.py.  The
-real Cloudy data files (e.g. CloudyData_UVB=HM2012.h5) are distributed
+real data files (e.g. CloudyData_UVB=HM2012.h5) are distributed
 separately (grackle: grackle_data_files submodule); the JAX package writes
 these synthetic tables to an HDF5 file.  Here the same arrays are returned
-as the in-memory schema ``data/cloudy.load_cloudy_table`` reads, so no
-``h5py`` is needed: a machine without it still solves the metal-cooling
+in memory, in the layout ``data/cloudy.load_cloudy_table`` and
+``data/uvb.load_uvb_table`` read, so no ``h5py`` is needed: a machine
+without it still solves the metal-cooling, tabulated and UVB
 configurations.
 
 The primordial cooling/MMW tables come from the analytic
 collisional-ionization-equilibrium model (utilities/primordial_equilibrium);
-metal cooling is a smooth Lambda_Z(T) bump.
+metal cooling is a smooth Lambda_Z(T) bump; the UVB rates follow an
+HM2012-like redshift history.
 """
 
 from __future__ import annotations
@@ -96,15 +98,45 @@ def _group(cool, heat, mmw, log_nh, zgrid, log_T):
     return group
 
 
+def _uvb_group(z_max):
+    """``/UVBRates`` of the synthetic data file: an HM2012-like history
+    peaking near z ~ 2, as nested dicts of the file's groups."""
+    zu = np.linspace(0.0, z_max, 60)
+    shape = np.exp(-((zu - 2.0) ** 2) / 8.0) + 0.05
+    return {
+        "Info": "synthetic UVB for grackle_tpu tests",
+        "z": zu,
+        # 1/s
+        "Chemistry": {
+            "k24": 2.4e-13 * shape, "k25": 1.2e-14 * shape,
+            "k26": 1.3e-13 * shape, "k27": 5.0e-10 * shape,
+            "k28": 1.0e-10 * shape, "k29": 8.0e-14 * shape,
+            "k30": 2.0e-13 * shape, "k31": 1.0e-12 * shape,
+        },
+        # eV/s per atom (update_UVbackground_rates.c:198-199); roughly
+        # <E> ~ 4 eV per ionization
+        "Photoheating": {
+            "piHI": 4.0 * 2.4e-13 * shape,
+            "piHeI": 4.5 * 1.3e-13 * shape,
+            "piHeII": 7.0 * 1.2e-14 * shape,
+        },
+        "CrossSections": {
+            "hi_avg_crs": 2.49e-18 * (1.0 + 0 * zu),
+            "hei_avg_crs": 4.4e-18 * (1.0 + 0 * zu),
+            "heii_avg_crs": 1.6e-18 * (1.0 + 0 * zu),
+        },
+    }
+
+
 def synthetic_cloudy_groups(
     n_density=25,
     n_redshift=10,
     n_temperature=121,
     z_max=10.0,
 ):
-    """The Cloudy groups of grackle_tpu's ``make_synthetic_data_file``
-    (same arguments, same arrays), as ``{"Primordial": ..., "Metals":
-    ...}`` for ``load_cloudy_table``."""
+    """The content of grackle_tpu's ``make_synthetic_data_file`` (same
+    arguments, same arrays): ``{"Primordial": ..., "Metals": ...}`` for
+    ``load_cloudy_table`` and ``"UVBRates"`` for ``load_uvb_table``."""
     log_nh = np.linspace(-10.0, 4.0, n_density)
     zgrid = np.linspace(0.0, z_max, n_redshift)
     log_T = np.linspace(1.0, 9.0, n_temperature)
@@ -114,4 +146,5 @@ def synthetic_cloudy_groups(
     return {
         "Primordial": _group(p_cool, p_heat, p_mmw, log_nh, zgrid, log_T),
         "Metals": _group(m_cool, m_heat, None, log_nh, zgrid, log_T),
+        "UVBRates": _uvb_group(z_max),
     }

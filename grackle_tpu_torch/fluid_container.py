@@ -4,9 +4,7 @@ grackle_tpu/fluid_container.py).
 Rebuild of pygrackle's FluidContainer
 (grackle: src/python/pygrackle/fluid_container.py:54-154) with the same
 field names and tiered species sets.  Fields are host NumPy arrays; the
-solve moves them to the context's device and back.  The derived-field
-methods (temperature, pressure, gamma, cooling and dust temperature) wait
-for the derived-field slice and raise NotImplementedError.
+solve and the derived fields move them to the context's device and back.
 """
 
 from __future__ import annotations
@@ -105,10 +103,16 @@ class FluidContainer(dict):
         self["nH"] = nH * my_chemistry.density_units / mass_hydrogen_cgs
 
     def calculate_mean_molecular_weight(self):
-        # (fluid_container.py:101-136); the energy branch needs the
-        # derived temperature and gamma, which are not ported yet
+        # (fluid_container.py:101-136)
         if not (self["energy"] == 0).all():
             self.calculate_temperature()
+            self.calculate_gamma()
+            self["mu"] = self["temperature"] / (
+                self["energy"] * (self["gamma"] - 1.0)
+                * self.chemistry_data.temperature_units
+            )
+            self["mean_molecular_weight"] = self["mu"]
+            return
         self["mu"] = np.ones(self["energy"].size)
         self["mean_molecular_weight"] = self["mu"]
         if self.chemistry_data.primordial_chemistry == 0:
@@ -135,35 +139,35 @@ class FluidContainer(dict):
                 f[name] = self[name]
         return f
 
+    def _to_host(self, val):
+        if isinstance(val, torch.Tensor):
+            val = val.cpu().numpy()
+        # preserve the container dtype regardless of solver precision
+        return np.array(val, dtype=self.dtype)
+
     def solve_chemistry(self, dt):
         new_f, _ = self.chemistry_data.solve_chemistry(
             self._solver_fields(), dt
         )
         for name, val in new_f.items():
             if name in self:
-                # preserve the container dtype regardless of solver
-                # precision
-                if isinstance(val, torch.Tensor):
-                    val = val.cpu().numpy()
-                self[name] = np.array(val, dtype=self.dtype)
+                self[name] = self._to_host(val)
 
     def _derived(self, name):
-        raise NotImplementedError(
-            f"FluidContainer.{name} is not ported to grackle_tpu_torch "
-            f"yet (ROADMAP queue 1: derived fields and the grid API)"
-        )
+        self[name] = self._to_host(getattr(
+            self.chemistry_data, f"calculate_{name}")(self._solver_fields()))
 
     def calculate_cooling_time(self):
-        self._derived("calculate_cooling_time")
+        self._derived("cooling_time")
 
     def calculate_temperature(self):
-        self._derived("calculate_temperature")
+        self._derived("temperature")
 
     def calculate_pressure(self):
-        self._derived("calculate_pressure")
+        self._derived("pressure")
 
     def calculate_gamma(self):
-        self._derived("calculate_gamma")
+        self._derived("gamma")
 
     def calculate_dust_temperature(self):
-        self._derived("calculate_dust_temperature")
+        self._derived("dust_temperature")

@@ -6,8 +6,7 @@ Batched rebuild of the reference's per-row cooling kernel
 cell axis: species state in, edot/tgas/tdust/mmw out.  Physics switches
 are host-side config flags, so only the enabled processes run.
 
-The tabulated mode (primordial_chemistry = 0) and old-style Cloudy tables
-are not ported yet and raise NotImplementedError.
+Old-style Cloudy tables are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from . import cloudy_cool
 from .common import dtype_tiny8
 from .dust_temp import calc_tdust_1d
 from .lookup import TableLookup, table_index
+from .tabulated_temp import tabulated_temperature
 
 MU_METAL = 16.0  # approx. mean molecular weight of metals
 
@@ -80,10 +80,16 @@ def compute_temperature_state(cfg, cloudy_prim, us, f, imetal: bool):
     p2d = (gamma - 1.0) * d * e
 
     if ispecies == 0:
-        raise NotImplementedError(
-            "tabulated mode (primordial_chemistry = 0) is not ported yet "
-            "(ROADMAP queue 1: tabulated mode, UVB and exact cooling)"
+        fh = cfg.HydrogenFractionByMass
+        metal = f["metal"] if imetal else torch.zeros_like(d)
+        rhoH = fh * (d - metal) if imetal else fh * d
+        tgas, mmw = tabulated_temperature(
+            cloudy_prim, d, metal, e, rhoH, us.dom, us.zr,
+            cfg.TemperatureStart, gamma, us.utem, imetal,
         )
+        myde = torch.zeros_like(d)  # recomputed from mmw in cool1d_multi
+        return (p2d, tgas, mmw, rhoH, myde, _metallicity(cfg, f, imetal),
+                rhoH * us.dom)
     nden = (
         (f["HeI"] + f["HeII"] + f["HeIII"]) / 4.0
         + f["HI"] + f["HII"] + f["de"]
@@ -119,12 +125,15 @@ def compute_temperature_state(cfg, cloudy_prim, us, f, imetal: bool):
         )
         tgas = tgas * (gamma2 - 1.0) / (gamma - 1.0)
 
+    return (p2d, tgas, mmw, rhoH, myde, _metallicity(cfg, f, imetal),
+            rhoH * us.dom)
+
+
+def _metallicity(cfg, f, imetal: bool):
+    d = f["density"]
     if imetal:
-        metallicity = f["metal"] / d / cfg.SolarMetalFractionByMass
-    else:
-        metallicity = torch.zeros_like(d)
-    mynh = rhoH * us.dom
-    return p2d, tgas, mmw, rhoH, myde, metallicity, mynh
+        return f["metal"] / d / cfg.SolarMetalFractionByMass
+    return torch.zeros_like(d)
 
 
 def cool1d_multi(
@@ -343,6 +352,20 @@ def cool1d_multi(
                 edot = edot + ipiht * (
                     pr.piHI * HI * fSShHI + pr.piHeI * HeI * fSShHeI
                 ) / dom
+
+    # --- tabulated primordial cooling (cool1d_multi_g.F:917-947) ---
+    if ispecies == 0:
+        edot = edot + cloudy_cool.cloudy_cooling(
+            cloudy_prim, logtem, rhoH, metallicity, dom, us.zr, us.comp2,
+            icmbTfloor=0, iClHeat=cfg.UVbackground, iZscale=0,
+        )
+        # electron density from mean molecular weight
+        # (cool1d_multi_g.F:932-945)
+        fh = cfg.HydrogenFractionByMass
+        myde = 1.0 - mmw * (3.0 * fh + 1.0) / 4.0
+        if imetal:
+            myde = myde - mmw * f["metal"] / (d * MU_METAL)
+        myde = torch.clamp(d * myde / mmw, min=0.0)
 
     # --- photoelectric heating (cool1d_multi_g.F:951-1001) ---
     if igammah > 0:

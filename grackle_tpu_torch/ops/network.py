@@ -24,7 +24,7 @@ import torch
 
 from ..constants import tiny
 from . import chemistry_step as cs
-from .common import div_host, dtype_tiny8, dtype_tolerance
+from .common import div_host, dtype_huge8, dtype_tiny8, dtype_tolerance
 
 
 def _two_sum(hi, lo, x):
@@ -76,8 +76,9 @@ def network_update(
         only UnitScalars fields this region consumes).
     dt : full-step timestep (host float).
     f : field dict restricted to :func:`network_field_keys`.
-    rs : RateState from lookup_cool_rates; only ``k``/``shields``/
-        ``h2dust`` are read.
+    rs : RateState from lookup_cool_rates (None when
+        primordial_chemistry == 0); only ``k``/``shields``/``h2dust``
+        are read.
     cool_v : dict with ``edot``, ``tgas``, ``p2d``, ``rhoH``,
         ``tgasold``, ``tdust`` from cool1d_multi.
     carry_v : dict with ``ttot``, ``tgasold``, ``tdust``,
@@ -93,13 +94,9 @@ def network_update(
     from .solver import species_names
 
     ispecies = cfg.primordial_chemistry
-    if ispecies == 0:
-        raise NotImplementedError(
-            "tabulated mode (primordial_chemistry = 0) is not ported yet "
-            "(ROADMAP queue 1: tabulated mode, UVB and exact cooling)"
-        )
     dtype = f["density"].dtype
     tiny8 = dtype_tiny8(dtype)
+    huge8 = dtype_huge8(dtype)
     tolerance = dtype_tolerance(dtype)
 
     compensated = cfg.compensated_sums == 1
@@ -107,6 +104,7 @@ def network_update(
     ttot = carry_v["ttot"]
     it = carry_v["cell_it"]
     edot = cool_v["edot"]
+    dtit = torch.full_like(edot, huge8)
     # Compensated mode: the true accumulated clock is ttot + ttot_lo;
     # every `dt - ttot` residual uses the compensated value so the
     # subcycle partition sums to dt without f32 drift.
@@ -115,57 +113,58 @@ def network_update(
     else:
         t_resid = dt - ttot
 
-    dedot, HIdot, edot = cs.rate_timestep(
-        cfg, rs, f, us, edot, cool_v["rhoH"]
-    )
+    if ispecies > 0:
+        dedot, HIdot, edot = cs.rate_timestep(
+            cfg, rs, f, us, edot, cool_v["rhoH"]
+        )
 
-    # dt limiter (solve_rate_cool_g.F:554-692)
-    de, HI = f["de"], f["HI"]
-    dedot = torch.where(
-        torch.abs(dedot) < tiny8, torch.clamp(de, max=tiny), dedot
-    )
-    HIdot = torch.where(
-        torch.abs(HIdot) < tiny8, torch.clamp(HI, max=tiny), HIdot
-    )
-    # balanced-rate zeroing (solve_rate_cool_g.F:566-572)
-    balanced = (
-        torch.minimum(
-            torch.abs(rs.k["k1"] * de * HI),
-            torch.abs(rs.k["k2"] * f["HII"] * de),
-        ) / torch.maximum(torch.abs(dedot), torch.abs(HIdot))
-    ) > 1.0e6
-    dedot = torch.where(balanced, torch.full_like(dedot, tiny8), dedot)
-    HIdot = torch.where(balanced, torch.full_like(HIdot, tiny8), HIdot)
-    # high-iteration damping (solve_rate_cool_g.F:580-583)
-    use_prev = it > 50
-    dedot = torch.where(
-        use_prev,
-        torch.minimum(torch.abs(dedot), torch.abs(carry_v["dedot_prev"])),
-        dedot,
-    )
-    HIdot = torch.where(
-        use_prev,
-        torch.minimum(torch.abs(HIdot), torch.abs(carry_v["HIdot_prev"])),
-        HIdot,
-    )
-    acc = cfg.subcycle_accuracy
-    dtit = torch.minimum(
-        torch.minimum(
-            torch.abs(acc * de / dedot),
-            torch.abs(acc * HI / HIdot),
-        ),
-        torch.clamp(t_resid, max=0.5 * dt),
-    )
-    if ispecies > 1:
-        # high-density H2-equilibrium limit, evaluated outside this
-        # region (it needs a table fetch); +huge where inactive, so
-        # the min reproduces a where(apply, min, dtit) bit-exactly
-        # (dtit <= 0.5*dt < huge here).
-        dtit = torch.minimum(dtit, h2_limit)
-    # NOTE: the reference's iter>10 anti-ringing clamp
-    # (solve_rate_cool_g.F:644-646) compares against a dtit that
-    # was just reset to huge at the top of the subcycle, making it
-    # a no-op; reproduced by omission.
+        # dt limiter (solve_rate_cool_g.F:554-692)
+        de, HI = f["de"], f["HI"]
+        dedot = torch.where(
+            torch.abs(dedot) < tiny8, torch.clamp(de, max=tiny), dedot
+        )
+        HIdot = torch.where(
+            torch.abs(HIdot) < tiny8, torch.clamp(HI, max=tiny), HIdot
+        )
+        # balanced-rate zeroing (solve_rate_cool_g.F:566-572)
+        balanced = (
+            torch.minimum(
+                torch.abs(rs.k["k1"] * de * HI),
+                torch.abs(rs.k["k2"] * f["HII"] * de),
+            ) / torch.maximum(torch.abs(dedot), torch.abs(HIdot))
+        ) > 1.0e6
+        dedot = torch.where(balanced, torch.full_like(dedot, tiny8), dedot)
+        HIdot = torch.where(balanced, torch.full_like(HIdot, tiny8), HIdot)
+        # high-iteration damping (solve_rate_cool_g.F:580-583)
+        use_prev = it > 50
+        dedot = torch.where(
+            use_prev,
+            torch.minimum(torch.abs(dedot), torch.abs(carry_v["dedot_prev"])),
+            dedot,
+        )
+        HIdot = torch.where(
+            use_prev,
+            torch.minimum(torch.abs(HIdot), torch.abs(carry_v["HIdot_prev"])),
+            HIdot,
+        )
+        acc = cfg.subcycle_accuracy
+        dtit = torch.minimum(
+            torch.minimum(
+                torch.abs(acc * de / dedot),
+                torch.abs(acc * HI / HIdot),
+            ),
+            torch.clamp(t_resid, max=0.5 * dt),
+        )
+        if ispecies > 1:
+            # high-density H2-equilibrium limit, evaluated outside this
+            # region (it needs a table fetch); +huge where inactive, so
+            # the min reproduces a where(apply, min, dtit) bit-exactly
+            # (dtit <= 0.5*dt < huge here).
+            dtit = torch.minimum(dtit, h2_limit)
+        # NOTE: the reference's iter>10 anti-ringing clamp
+        # (solve_rate_cool_g.F:644-646) compares against a dtit that
+        # was just reset to huge at the top of the subcycle, making it
+        # a no-op; reproduced by omission.
 
     # energy timestep (solve_rate_cool_g.F:698-750); div_host divides
     # as the kernel does on every device
@@ -204,15 +203,18 @@ def network_update(
             )
 
     # species update (solve_rate_cool_g.F:780-796)
-    stepped, dedot_prev_new, HIdot_prev_new = cs.step_rate(
-        cfg, rs, new_fields, us, dtit, cool_v["rhoH"]
-    )
-    for name in species_names(cfg):
-        new_fields[name] = torch.where(
-            itmask, stepped[name], new_fields[name]
+    dedot_prev = carry_v["dedot_prev"]
+    HIdot_prev = carry_v["HIdot_prev"]
+    if ispecies > 0:
+        stepped, dedot_prev_new, HIdot_prev_new = cs.step_rate(
+            cfg, rs, new_fields, us, dtit, cool_v["rhoH"]
         )
-    dedot_prev = torch.where(itmask, dedot_prev_new, carry_v["dedot_prev"])
-    HIdot_prev = torch.where(itmask, HIdot_prev_new, carry_v["HIdot_prev"])
+        for name in species_names(cfg):
+            new_fields[name] = torch.where(
+                itmask, stepped[name], new_fields[name]
+            )
+        dedot_prev = torch.where(itmask, dedot_prev_new, dedot_prev)
+        HIdot_prev = torch.where(itmask, HIdot_prev_new, HIdot_prev)
 
     # advance cell clocks and retire finished cells
     # (solve_rate_cool_g.F:803-813)

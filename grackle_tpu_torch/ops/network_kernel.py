@@ -6,7 +6,9 @@ launches csrc/network_update.cu through :func:`network_update_cuda`, or
 raises.  There is no fallback from the card to the twin.
 
 The kernel replaces grackle_tpu/ops/network_kernel.py
-``network_update_pallas`` (the JAX package's one ``pl.pallas_call``).  It is
+``network_update_pallas`` (the JAX package's one ``pl.pallas_call``) and
+takes every configuration that kernel takes: primordial_chemistry 0-3,
+``compensated_sums`` and the radiative-transfer rate fields.  It is
 built at first use with ``nvcc`` for sm_90a from the source in this
 package, into ``grackle_tpu_torch/_build/`` (a shared library with a plain
 C interface, loaded with ctypes), and launched on PyTorch's current
@@ -25,7 +27,7 @@ import threading
 import torch
 
 from . import network as _plain
-from .common import dtype_tiny8, dtype_tolerance
+from .common import dtype_huge8, dtype_tiny8, dtype_tolerance
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "network_update.cu")
@@ -41,8 +43,11 @@ NVCC_FLAGS = [
 ]
 
 #: operand slots, in the order of csrc/network_update.cu's enum In
-FIELD_SLOTS = ["density", "energy", "de", "HI", "HII", "HeI", "HeII",
-               "HeIII", "HM", "H2I", "H2II", "DI", "DII", "HDI"]
+SPECIES_SLOTS = ["de", "HI", "HII", "HeI", "HeII", "HeIII", "HM", "H2I",
+                 "H2II", "DI", "DII", "HDI"]
+RT_SLOTS = ["RT_HI_ionization_rate", "RT_HeI_ionization_rate",
+            "RT_HeII_ionization_rate"]
+FIELD_SLOTS = ["density", "energy"] + SPECIES_SLOTS + RT_SLOTS
 K_SLOTS = ["k1", "k2", "k3", "k4", "k5", "k6", "k57", "k58",
            "k7", "k8", "k9", "k10", "k11", "k12", "k13", "k14", "k15",
            "k16", "k17", "k18", "k19", "k22", "n_cr_n", "n_cr_d1",
@@ -50,13 +55,19 @@ K_SLOTS = ["k1", "k2", "k3", "k4", "k5", "k6", "k57", "k58",
 SHIELD_SLOTS = ["k24", "k25", "k26", "k28", "k29", "k30", "k31"]
 COOL_SLOTS = ["edot", "tgas", "p2d", "rhoH", "tgasold", "tdust"]
 CARRY_SLOTS = ["ttot", "tgasold", "tdust", "dedot_prev", "HIdot_prev",
-               "dtit_prev", "itmask", "cell_it", "capped"]
-N_IN = (len(FIELD_SLOTS) + len(K_SLOTS) + len(SHIELD_SLOTS) + 1
-        + len(COOL_SLOTS) + len(CARRY_SLOTS) + 1)
+               "dtit_prev", "itmask", "cell_it", "capped", "energy_lo",
+               "ttot_lo"]
+#: every input slot in order, with h2dust after the shields and the
+#: H2-equilibrium limit last
+IN_SLOTS = (FIELD_SLOTS + K_SLOTS + SHIELD_SLOTS + ["h2dust"] + COOL_SLOTS
+            + CARRY_SLOTS + ["h2_limit"])
+N_IN = len(IN_SLOTS)
 #: output slots, in the order of csrc/network_update.cu's enum Out
-OUT_FIELD_SLOTS = FIELD_SLOTS[1:]
+OUT_FIELD_SLOTS = ["energy"] + SPECIES_SLOTS
 OUT_CARRY_SLOTS = CARRY_SLOTS
 N_OUT = len(OUT_FIELD_SLOTS) + len(OUT_CARRY_SLOTS)
+#: carry slots that only compensated_sums = 1 uses
+COMPENSATED_SLOTS = ["energy_lo", "ttot_lo"]
 
 
 class _NetworkArgs(ctypes.Structure):
@@ -69,11 +80,14 @@ class _NetworkArgs(ctypes.Structure):
         ("with_radiative_cooling", ctypes.c_int),
         ("deuterium_coupled", ctypes.c_int),
         ("max_iterations", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("compensated", ctypes.c_int),
+        ("rt", ctypes.c_int),
+        ("rt_hydrogen_only", ctypes.c_int),
         ("dt", ctypes.c_double),
         ("half_dt", ctypes.c_double),
         ("tol_dt", ctypes.c_double),
         ("tiny8", ctypes.c_double),
+        ("huge8", ctypes.c_double),
         ("dom", ctypes.c_double),
         ("chunit", ctypes.c_double),
         ("k27", ctypes.c_double),
@@ -158,31 +172,22 @@ def load():
     return _lib
 
 
-def _unsupported(cfg):
-    if cfg.primordial_chemistry not in (1, 2, 3):
-        return ("primordial_chemistry = 0 (tabulated mode; ROADMAP "
-                "queue 1: tabulated mode, UVB and exact cooling)")
-    if cfg.compensated_sums == 1:
-        return ("compensated_sums = 1 (ROADMAP queue 1: compensated_sums "
-                "and radiative transfer in the kernel)")
-    if cfg.use_radiative_transfer == 1:
-        return ("use_radiative_transfer = 1 (ROADMAP queue 1: "
-                "compensated_sums and radiative transfer in the kernel)")
-    return None
-
-
 def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     """Check the operands of one network-region launch and allocate its
     outputs.  Returns ``(launch, result)``: ``launch()`` runs the kernel
     on the current stream, writing ``result`` (the carry dict
-    ``network_update`` returns), and counts nothing.  Every tensor must
-    be a contiguous [N] CUDA tensor of one device; the float operands
-    share one dtype (float32 or float64)."""
-    why = _unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"network kernel: {why}")
+    ``network_update`` returns), and counts nothing; ``launch.bytes`` is
+    what one launch must move, each operand read once and each result
+    written once.  Every tensor must be a contiguous [N] CUDA tensor of
+    one device; the float operands share one dtype (float32 or
+    float64)."""
     ispecies = cfg.primordial_chemistry
+    if ispecies not in (0, 1, 2, 3):
+        raise ValueError(f"network kernel: primordial_chemistry = "
+                         f"{ispecies} is not 0-3")
     anydust = (cfg.h2_on_dust > 0) or (cfg.dust_chemistry > 0)
+    compensated = cfg.compensated_sums == 1
+    rt = cfg.use_radiative_transfer == 1
     ref = f["density"]
     dtype, device, n = ref.dtype, ref.device, ref.shape[0]
     if device.type != "cuda":
@@ -191,16 +196,23 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"network kernel takes float32/float64, got {dtype}")
 
-    species = ["de", "HI", "HII", "HeI", "HeII", "HeIII"]
-    if ispecies > 1:
-        species += ["HM", "H2I", "H2II"]
-    if ispecies > 2:
-        species += ["DI", "DII", "HDI"]
-    k_used = K_SLOTS[:8] + (K_SLOTS[8:25] if ispecies > 1 else []) \
-        + (K_SLOTS[25:] if ispecies > 2 else [])
-    sh_used = SHIELD_SLOTS if ispecies > 1 else SHIELD_SLOTS[:3]
+    species = SPECIES_SLOTS[:(0, 6, 9, 12)[ispecies]]
+    rt_used = []
+    if rt and ispecies > 0:
+        rt_used = RT_SLOTS[:1 if cfg.radiative_transfer_hydrogen_only
+                           else 3]
+    k_used = ((K_SLOTS[:8] if ispecies > 0 else [])
+              + (K_SLOTS[8:25] if ispecies > 1 else [])
+              + (K_SLOTS[25:] if ispecies > 2 else []))
+    sh_used = SHIELD_SLOTS[:(0, 3, 7, 7)[ispecies]]
+    carry_used = [name for name in CARRY_SLOTS
+                  if compensated or name not in COMPENSATED_SLOTS]
+    want = {"itmask": torch.bool, "capped": torch.bool,
+            "cell_it": torch.int32}
+    moved = 0
 
     def check(t, name, want=dtype):
+        nonlocal moved
         if (not isinstance(t, torch.Tensor) or t.device != device
                 or t.dtype != want or t.shape != (n,)
                 or not t.is_contiguous()):
@@ -210,12 +222,13 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise ValueError(
                 f"network kernel operand {name}: want a contiguous {want} "
                 f"[{n}] tensor on {device}, got {got}")
+        moved += t.element_size() * n
         return t.data_ptr()
 
     ptrs = [None] * N_IN
     base = 0
     for j, name in enumerate(FIELD_SLOTS):
-        if name in ("density", "energy") or name in species:
+        if name in ("density", "energy") or name in species + rt_used:
             ptrs[base + j] = check(f[name], name)
     base += len(FIELD_SLOTS)
     for j, name in enumerate(K_SLOTS):
@@ -232,11 +245,10 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     for j, name in enumerate(COOL_SLOTS):
         ptrs[base + j] = check(cool_v[name], f"cool {name}")
     base += len(COOL_SLOTS)
-    want = {"itmask": torch.bool, "capped": torch.bool,
-            "cell_it": torch.int32}
     for j, name in enumerate(CARRY_SLOTS):
-        ptrs[base + j] = check(carry_v[name], f"carry {name}",
-                               want.get(name, dtype))
+        if name in carry_used:
+            ptrs[base + j] = check(carry_v[name], f"carry {name}",
+                                   want.get(name, dtype))
     base += len(CARRY_SLOTS)
     if ispecies > 1:
         ptrs[base] = check(h2_limit, "h2_limit")
@@ -245,24 +257,30 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
                   ["energy"] + species}
     carry_out = {name: torch.empty(n, dtype=want.get(name, dtype),
                                    device=device)
-                 for name in OUT_CARRY_SLOTS}
+                 for name in carry_used}
     optrs = [None] * N_OUT
     for j, name in enumerate(OUT_FIELD_SLOTS):
         if name in fields_out:
             optrs[j] = fields_out[name].data_ptr()
     for j, name in enumerate(OUT_CARRY_SLOTS):
-        optrs[len(OUT_FIELD_SLOTS) + j] = carry_out[name].data_ptr()
+        if name in carry_out:
+            optrs[len(OUT_FIELD_SLOTS) + j] = carry_out[name].data_ptr()
+    moved += sum(t.element_size() * n for t in
+                 list(fields_out.values()) + list(carry_out.values()))
 
     tolerance = dtype_tolerance(dtype)
     args = _NetworkArgs(
         n=n, ispecies=ispecies, anydust=int(anydust),
         with_radiative_cooling=int(cfg.with_radiative_cooling),
         deuterium_coupled=int(cfg.deuterium_coupled_solve),
-        max_iterations=int(cfg.max_iterations), pad_=0,
+        max_iterations=int(cfg.max_iterations),
+        compensated=int(compensated), rt=int(rt),
+        rt_hydrogen_only=int(cfg.radiative_transfer_hydrogen_only),
         dt=float(dt), half_dt=0.5 * dt, tol_dt=tolerance * dt,
-        tiny8=dtype_tiny8(dtype),
+        tiny8=dtype_tiny8(dtype), huge8=dtype_huge8(dtype),
         dom=float(us.dom), chunit=float(us.chunit),
-        k27=float(rs.shields["k27"]), acc=float(cfg.subcycle_accuracy),
+        k27=float(rs.shields["k27"]) if ispecies > 0 else 0.0,
+        acc=float(cfg.subcycle_accuracy),
         gamma_m1=cfg.Gamma - 1.0,
         t_start_101=1.01 * cfg.TemperatureStart,
     )
@@ -280,6 +298,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise RuntimeError(f"network kernel launch failed: CUDA error "
                                f"{err}")
 
+    launch.bytes = moved
     return launch, dict(fields=fields_out, **carry_out)
 
 

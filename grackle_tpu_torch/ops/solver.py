@@ -1,5 +1,4 @@
-"""Subcycled chemistry + cooling solver (port of grackle_tpu/ops/solver.py,
-monolithic path).
+"""Subcycled chemistry + cooling solver (port of grackle_tpu/ops/solver.py).
 
 Rebuild of the reference's main kernel driver
 (grackle: src/clib/solve_rate_cool_g.F:6-892).  The reference parallelizes
@@ -15,8 +14,9 @@ which no cell is active changes no output (every carry update is masked),
 so running up to ``CHECK_EVERY - 1`` of them past the last active cell is
 exact.
 
-Converged-cell compaction (grackle_tpu's solve_rate_cool_compacted) is not
-ported yet.
+:func:`solve_rate_cool` is the monolithic solve;
+:func:`solve_rate_cool_compacted` runs the same per-cell subcycles on tiles
+and then on gathered batches of the unconverged cells.
 """
 
 from __future__ import annotations
@@ -154,7 +154,8 @@ class SolveResult:
     n_iterations: Any  # scalar int: subcycles taken (max over cells)
     converged: Any  # [N] bool: cells that reached dt within max_iterations
     cell_iterations: Any  # [N] int32: subcycles each cell was active for
-    subcycles: int = 0  # loop trips run, fully masked trailing ones too
+    subcycles: int = 0  # subcycles run (network launches), masked ones too
+    trips: int = 0  # outer batches of the compacted solve
 
 
 def prepare_fields(cfg, f, us, imetal: bool, comoving: bool):
@@ -240,10 +241,12 @@ def subcycle(cfg, tables, cloudy_prim, cloudy_met, pr, us, carry, dt,
         carry["tgasold"], first_iter, imetal, cloudy_data_new,
         tdust_prev=carry["tdust"],
     )
-    rs = cs.lookup_cool_rates(
-        cfg, tables, pr, us, f, cool.tgas, cool.mmw, cool.tdust,
-        cool.dust2gas, l_h2shield_field, imetal,
-    )
+    rs = None
+    if cfg.primordial_chemistry > 0:
+        rs = cs.lookup_cool_rates(
+            cfg, tables, pr, us, f, cool.tgas, cool.mmw, cool.tdust,
+            cool.dust2gas, l_h2shield_field, imetal,
+        )
     h2_limit = None
     if cfg.primordial_chemistry > 1:
         h2_limit = _h2_equilibrium_limit(
@@ -273,11 +276,13 @@ def run_subcycles(
     dt,
     imetal: bool,
     cloudy_data_new: bool = True,
+    chunk: int | None = None,
     const_f=None,
     l_h2shield_field=None,
 ):
-    """Run subcycle iterations until no cell is active (at most
-    max_iterations), retiring converged cells via the per-cell mask.
+    """Run up to ``chunk`` subcycle iterations (default: to the
+    max_iterations cap), stopping early once no cell is active, and
+    retiring converged cells via the per-cell mask.
     The per-cell update is purely elementwise and iteration bookkeeping
     (first-iteration init, >50-iteration damping, the max_iterations
     cap) uses the per-cell subcycle counter.  (The reference is likewise
@@ -289,19 +294,16 @@ def run_subcycles(
     Mirrors the subcycle loop of solve_rate_cool_g.F:443-813.  Returns
     (carry, subcycles run).
     """
-    if cfg.primordial_chemistry == 0:
-        raise NotImplementedError(
-            "tabulated mode (primordial_chemistry = 0) is not ported yet "
-            "(ROADMAP queue 1: tabulated mode, UVB and exact cooling)"
-        )
     if const_f is None or "density" not in const_f:
         raise ValueError(
             "run_subcycles requires const_f (the read-only field dict "
             "from split_state); density is always routed there"
         )
+    if chunk is None:
+        chunk = cfg.max_iterations
     carry = carry0
     step = 0
-    while step < cfg.max_iterations:
+    while step < chunk:
         if step % CHECK_EVERY == 0 and not bool(carry["itmask"].any()):
             break
         carry = subcycle(
@@ -353,6 +355,13 @@ def solve_rate_cool(
         imetal=imetal, cloudy_data_new=cloudy_data_new,
         const_f=f_const, l_h2shield_field=l_h2shield_field,
     )
+    return _result(cfg, f_const, carry, us, imetal, comoving, steps)
+
+
+def _result(cfg, f_const, carry, us, imetal, comoving, subcycles,
+            trips=0) -> SolveResult:
+    """The solve's fields (rescaled and renormalized) and diagnostics
+    from the final loop carry."""
     out = dict(f_const)
     out.update(carry["fields"])
     if cfg.compensated_sums == 1:
@@ -364,5 +373,136 @@ def solve_rate_cool(
         n_iterations=torch.max(carry["cell_it"]),
         converged=~carry["capped"],
         cell_iterations=carry["cell_it"],
-        subcycles=steps,
+        subcycles=subcycles,
+        trips=trips,
     )
+
+
+def warm_tile_width(batch):
+    """Warm-phase tile width of the compacted solve: max(batch, 262144),
+    the JAX package's default (its GTPU_WARM_TILE override is not
+    carried over)."""
+    return max(batch, 262_144)
+
+
+#: per-cell carry entries besides the fields and the three flags
+_AUX_KEYS = ["ttot", "tgasold", "tdust", "dedot_prev", "HIdot_prev",
+             "dtit_prev"]
+_FLAG_KEYS = ["cell_it", "itmask", "capped"]
+
+
+def solve_rate_cool_compacted(
+    cfg,
+    tables,
+    cloudy_prim,
+    cloudy_met,
+    pr,
+    us,
+    f,
+    dt,
+    imetal: bool,
+    cloudy_data_new: bool = True,
+    l_h2shield_field=None,
+    comoving: bool = False,
+    warm: int = 16,
+    batch: int = 16384,
+    tile: int | None = None,
+) -> SolveResult:
+    """solve_rate_cool with converged-cell compaction.
+
+    The per-cell subcycle count is heavy-tailed, so the monolithic loop
+    makes every cell ride along until the slowest converges.  Here:
+
+    1. ``warm`` subcycles run on contiguous tiles of ``tile`` cells
+       (default :func:`warm_tile_width`); the last tile is clamped to
+       ``[n - tile, n)``, so its overlap re-runs cells that are already
+       done (masked no-ops) or advances active ones earlier;
+    2. outer trips, one host read each, take the ``batch`` active cells
+       with the most predicted residual subcycles ``(dt - ttot) /
+       dtit_prev`` (``torch.topk``, indices sorted), gather them, run
+       them for up to max_iterations subcycles and scatter them back.
+
+    Every subcycle's bookkeeping is per cell, so the per-cell subcycle
+    sequence, and with it every result, is that of the monolithic loop
+    whatever the tiles and batches (bit-identical where each element of
+    an elementwise op is computed alike wherever it sits in the tensor).
+    The carry is packed as rows of one ``(C, N)`` tensor (mutable state
+    ``M``, gathered and scattered) and the read-only fields as ``K``
+    (gathered only), so each trip is one gather and one scatter and
+    every row the network kernel reads is contiguous.
+    """
+    f, itmask0 = prepare_fields(cfg, f, us, imetal, comoving)
+    f_state, f_const = split_state(cfg, f)
+    carry = init_carry(f_state, itmask0, cfg)
+    dtype = f["density"].dtype
+    n = f["density"].shape[0]
+    batch = min(batch, n)
+    tile = warm_tile_width(batch) if tile is None else tile
+
+    state_keys = sorted(carry["fields"])
+    const_keys = sorted(f_const)
+    aux_keys = list(_AUX_KEYS)
+    if cfg.compensated_sums == 1:
+        aux_keys += ["energy_lo", "ttot_lo"]
+    row = {key: j for j, key in
+           enumerate(state_keys + aux_keys + _FLAG_KEYS)}
+
+    def pack(c):
+        # exact: cell_it (< max_iterations) and the masks are small
+        # integers in the solver dtype
+        cols = [c["fields"][k] for k in state_keys]
+        cols += [c[k] for k in aux_keys]
+        cols += [c[k].to(dtype) for k in _FLAG_KEYS]
+        return torch.stack(cols)
+
+    def unpack(m):
+        c = {k: m[row[k]] for k in aux_keys}
+        c["fields"] = {k: m[row[k]] for k in state_keys}
+        c["cell_it"] = m[row["cell_it"]].to(torch.int32)
+        c["itmask"] = m[row["itmask"]] > 0
+        c["capped"] = m[row["capped"]] > 0
+        return c
+
+    k_rows = [f_const[k] for k in const_keys]
+    if l_h2shield_field is not None:
+        k_rows.append(l_h2shield_field)
+    K = torch.stack(k_rows)
+
+    def run(m, k, n_steps):
+        consts = {key: k[j] for j, key in enumerate(const_keys)}
+        l_h2 = k[len(const_keys)] if l_h2shield_field is not None else None
+        c, steps = run_subcycles(
+            cfg, tables, cloudy_prim, cloudy_met, pr, us, unpack(m), dt,
+            imetal=imetal, cloudy_data_new=cloudy_data_new, chunk=n_steps,
+            const_f=consts, l_h2shield_field=l_h2,
+        )
+        return pack(c), steps
+
+    M = pack(carry)
+    subcycles = 0
+    if warm > 0:
+        width = min(tile, n)
+        for i in range(-(-n // width)):
+            start = min(i * width, n - width)
+            cells = slice(start, start + width)
+            packed, steps = run(M[:, cells], K[:, cells], warm)
+            M[:, cells] = packed
+            subcycles += steps
+
+    trips = 0
+    while bool((M[row["itmask"]] > 0).any()):
+        mask, ttot, dtit = (M[row["itmask"]], M[row["ttot"]],
+                            M[row["dtit_prev"]])
+        residual = (dt - ttot) / torch.clamp(dtit, min=tiny)
+        key = torch.where(mask > 0, residual,
+                          torch.full_like(residual, -1.0))
+        # batch composition never changes a cell's result; ascending
+        # indices keep the gather and scatter in memory order
+        idx = torch.sort(torch.topk(key, batch, sorted=False).indices).values
+        packed, steps = run(M.index_select(1, idx), K.index_select(1, idx),
+                            cfg.max_iterations)
+        M.index_copy_(1, idx, packed)
+        subcycles += steps
+        trips += 1
+    return _result(cfg, f_const, unpack(M), us, imetal, comoving,
+                   subcycles, trips)

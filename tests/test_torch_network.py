@@ -8,6 +8,7 @@ from a few port subcycles of that state, turned back into numpy, and fed
 to both packages; the JAX functions run eagerly.
 """
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -39,8 +40,9 @@ torch.set_num_threads(1)
 
 UNIT_ATTRS = dict(density_units=mass_hydrogen_cgs, length_units=3.0857e21,
                   time_units=3.1556952e13)
-#: network-region configurations: every primordial_chemistry, with and
-#: without dust, and the uncoupled (Jacobi) deuterium update
+#: network-region configurations: every primordial_chemistry (0 is
+#: tabulated mode), with and without dust, the uncoupled (Jacobi)
+#: deuterium update, compensated_sums and radiative transfer
 CASES = chip_smoke.NETWORK_CASES
 #: the answer workloads' state recipe: numpy fields from a seed
 state = chip_smoke.answer_state
@@ -69,13 +71,19 @@ def jax_context_as_port(jcd, device="cpu", dtype=torch.float64):
                 out[name] = np.asarray(val)
         return out
 
+    uvb = None
+    if ctx.uvb is not None:
+        uvb = {f.name: (getattr(ctx.uvb, f.name) if f.name == "info"
+                        or getattr(ctx.uvb, f.name) is None
+                        else np.asarray(getattr(ctx.uvb, f.name)))
+               for f in dataclasses.fields(ctx.uvb)}
     params = {name: getattr(ctx.config, name)
               for name in jconfig.PARAMETER_REGISTRY}
     return context_from_numpy(params, ctx.units, tables,
                               cloudy(ctx.cloudy_primordial),
                               cloudy(ctx.cloudy_metal), device=device,
                               dtype=dtype,
-                              cloudy_data_new=ctx.cloudy_data_new)
+                              cloudy_data_new=ctx.cloudy_data_new, uvb=uvb)
 
 
 def jax_config(cfg):
@@ -109,11 +117,14 @@ def network_args(cfg, inp, to_array):
         return {k: (v if isinstance(v, float) else to_array(v.numpy()))
                 for k, v in d.items()}
 
-    rate_state = (pcs.RateState if to_array is torch.from_numpy
-                  else jcs.RateState)(
-        k=arr(rs.k), k13dd=None,
-        h2dust=None if rs.h2dust is None else to_array(rs.h2dust.numpy()),
-        shields=arr(rs.shields), ti=None)
+    rate_state = None
+    if rs is not None:  # None in tabulated mode
+        rate_state = (pcs.RateState if to_array is torch.from_numpy
+                      else jcs.RateState)(
+            k=arr(rs.k), k13dd=None,
+            h2dust=None if rs.h2dust is None
+            else to_array(rs.h2dust.numpy()),
+            shields=arr(rs.shields), ti=None)
     us = types.SimpleNamespace(dom=inp["us"].dom, chunit=inp["us"].chunit)
     h2 = host["h2_limit"]
     return (cfg, us, inp["dt"],
@@ -306,8 +317,9 @@ def test_calc_tdust_1d_matches(dust_contexts, monkeypatch):
 
 def test_kernel_wrapper_routes_cpu_tensors_to_twin():
     """network_kernel.network_update takes the twin for CPU tensors and
-    counts no launch; network_update_cuda refuses CPU tensors, and the
-    options the kernel leaves out raise NotImplementedError."""
+    counts no launch; network_update_cuda refuses CPU tensors.  The
+    kernel takes every option the Pallas kernel takes, so none of them
+    is refused as unsupported: each reaches the device check."""
     cd = port_chem(64, **CASES["chem2"])
     cfg = cd.context.config
     inp = capture(cd, state(cd, n=16), 1.0e-4, (0,))[0]
@@ -322,10 +334,11 @@ def test_kernel_wrapper_routes_cpu_tensors_to_twin():
         network_kernel.network_update_cuda(*args)
     import dataclasses
 
-    for option in ("compensated_sums", "use_radiative_transfer"):
-        bad = dataclasses.replace(cfg, **{option: 1})
-        with pytest.raises(NotImplementedError, match=option):
-            network_kernel.network_update_cuda(bad, *args[1:])
+    for option in ("compensated_sums", "use_radiative_transfer",
+                   "radiative_transfer_hydrogen_only"):
+        other = dataclasses.replace(cfg, **{option: 1})
+        with pytest.raises(ValueError, match="CUDA"):
+            network_kernel.network_update_cuda(other, *args[1:])
     assert network_kernel.network_update_cuda.launches == before
 
 
@@ -333,6 +346,7 @@ def test_kernel_layout_matches_source():
     """The wrapper's operand slots are the source's enums, in order, and
     the build flags keep IEEE arithmetic (no FMA contraction, no fast
     math)."""
+    import ctypes
     import re
 
     with open(network_kernel.SOURCE) as fh:
@@ -349,10 +363,17 @@ def test_kernel_layout_matches_source():
     assert ins[-1] == "N_IN" and outs[-1] == "N_OUT"
     assert len(ins) - 1 == nk.N_IN and len(outs) - 1 == nk.N_OUT
     assert [s[2:] for s in ins[:len(nk.FIELD_SLOTS)]] == nk.FIELD_SLOTS
+    # every input slot; the source names the shield slots s24.. and the
+    # cooling results' tgasold/tdust cool_*
+    renamed = {f"s{k[1:]}": k for k in nk.SHIELD_SLOTS}
+    renamed.update(cool_tgasold="tgasold", cool_tdust="tdust")
+    assert [renamed.get(s[2:], s[2:]) for s in ins[:-1]] == nk.IN_SLOTS
     assert [s[2:] for s in outs[:len(nk.OUT_FIELD_SLOTS)]] == \
         nk.OUT_FIELD_SLOTS
     assert [s[2:] for s in outs[len(nk.OUT_FIELD_SLOTS):-1]] == \
         nk.OUT_CARRY_SLOTS
+    # the argument struct stays under the 4 KB kernel parameter limit
+    assert ctypes.sizeof(nk._NetworkArgs) < 4096
     assert "-fmad=false" in nk.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in nk.NVCC_FLAGS
     assert not any("fast_math" in f for f in nk.NVCC_FLAGS)

@@ -1,6 +1,6 @@
 """grackle_tpu_torch's ``solve_chemistry`` end to end on the CPU: the
 stored answers of the JAX package, one live JAX solve on identical
-tables, and the public API of the first port slice.
+tables, and the public API of the port.
 
 On CPU tensors every subcycle's network region runs the plain twin
 (ops/network.py); the CUDA kernel is held to that twin on the card by
@@ -25,25 +25,22 @@ from tests.test_torch_network import (UNIT_ATTRS, jax_context_as_port,
 
 torch.set_num_threads(1)
 
-#: the answer workloads of tests/answer_workloads.py that this slice
-#: runs: name -> (configuration, dt)
-ANSWERS = {name: (kw, dt) for name, kw, dt in chip_smoke.ANSWERS}
+#: the flat answer workloads of tests/answer_workloads.py (grid_full is
+#: tests/test_torch_grid.py's)
+ANSWERS = [name for name in chip_smoke.ANSWERS if name != "grid_full"]
 
 
-@pytest.mark.parametrize("name", list(ANSWERS))
+@pytest.mark.parametrize("name", ANSWERS)
 def test_stored_answers(name):
-    """The port's f64 solve against the JAX package's stored answers at
-    the reference's rtol 1e-6 (answer_workloads: 32 cells, seed 4; the
-    in-memory Cloudy tables equal the data file, test_torch_tables)."""
-    kw, dt = ANSWERS[name]
-    cd = port_chem(64, **kw)
-    new_f, diag = cd.solve_chemistry(state(cd, n=32), dt)
-    assert bool(diag["converged"].all())
+    """The port's f64 workload (solve and derived fields, 32 cells, seed
+    4) against every key of the JAX package's stored answer, at the
+    reference's rtol 1e-6; the in-memory Cloudy and UVB tables equal the
+    data file (test_torch_tables)."""
+    out = chip_smoke.ANSWERS[name]("cpu")
     stored = np.load(os.path.join(ANSWER_DIR, f"{name}.npz"))
-    keys = [k for k in stored.files if k in new_f]
-    assert len(keys) >= 4
-    for key in keys:
-        got = new_f[key]
+    assert sorted(out) == sorted(stored.files)
+    for key in stored.files:
+        got = out[key]
         assert got.dtype == torch.float64 and got.shape == (32,)
         np.testing.assert_allclose(got.numpy(), stored[key], rtol=1e-6,
                                    atol=0, err_msg=key)
@@ -93,7 +90,7 @@ def test_extra_subcycles_are_noops(monkeypatch):
     """The loop reads "any cell active" every CHECK_EVERY subcycles; the
     fully masked subcycles it runs past the last active cell change
     nothing, so the result equals a host check after every subcycle."""
-    cd = port_chem(64, **ANSWERS["6species"][0])
+    cd = port_chem(64, primordial_chemistry=1)
     fields = state(cd, n=32)
     got_f, got_d = cd.solve_chemistry(fields, 1.0e-3)
     n_it = int(got_d["n_iterations"])
@@ -124,10 +121,11 @@ def test_precision_32_stays_f32():
         assert float(rel.median()) < 1e-4, key
 
 
-def test_solve_path_and_unported_paths():
-    """solve_path names the JAX package's three paths; the two this
-    slice leaves out raise NotImplementedError naming the ROADMAP item,
-    and never run another path."""
+def test_solve_path_and_unported_paths(monkeypatch):
+    """solve_path names the JAX package's three paths; 'compact' runs
+    (with its threshold lowered here), and only 'exact' still raises
+    NotImplementedError naming the ROADMAP item, never running another
+    path.  UVbackground = 1 initializes."""
     cfg = api.resolve_config(api.ChemistryConfig(primordial_chemistry=3))
     assert cfg.solver_compaction > 0
     assert solve_path(cfg, 1000) == "monolithic"
@@ -136,15 +134,42 @@ def test_solve_path_and_unported_paths():
         primordial_chemistry=0, exact_cooling=1, metal_cooling=1))
     assert solve_path(exact, 10) == "exact"
 
+    monkeypatch.setattr(api, "_COMPACT_MIN_BUCKET", 8)
     cd = port_chem(64, primordial_chemistry=1)
-    big = state(cd, n=4 * 8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*compaction"):
-        cd.solve_chemistry(big, 1.0e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _, diag = cd.solve_chemistry(state(cd, n=32), 1.0e-4)
+    assert diag["trips"] > 0 and bool(diag["converged"].all())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*exact"):
         port_chem(64, primordial_chemistry=0, exact_cooling=1,
                   metal_cooling=1).solve_chemistry(state(cd, n=8), 1.0e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_chem(64, primordial_chemistry=3, UVbackground=1)
+    uvb = port_chem(64, primordial_chemistry=3, UVbackground=1)
+    assert uvb.context.uvb is not None
+    assert uvb.UVbackground_redshift_on == 10.0
+
+
+def test_device_defaults_to_cuda():
+    """The entry points put the context on the CUDA card unless the
+    caller asks for the CPU; without a card they raise, naming
+    device="cpu", and never fall back."""
+    import inspect
+
+    from grackle_tpu_torch import convert
+
+    for fn in (api.initialize, api.ChemistryData.initialize,
+               convert.context_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a host without CUDA")
+    cd = api.ChemistryData(use_grackle=1, primordial_chemistry=1)
+    for k, v in UNIT_ATTRS.items():
+        setattr(cd, k, v)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cd.initialize()
+    assert cd.context is None
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        api.initialize(cd.config, cd.code_units)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.context_from_numpy({}, cd.code_units, {}, {}, {})
+    assert port_chem(64, primordial_chemistry=1).context.device.type == "cpu"
 
 
 def test_fused_lookup_flag_has_no_effect():
@@ -162,7 +187,8 @@ def test_fused_lookup_flag_has_no_effect():
 
 def test_fluid_container_solve():
     """FluidContainer holds numpy fields, solves through the context and
-    keeps its dtype; the derived fields wait for their slice."""
+    keeps its dtype; its derived fields are the context's, and the mean
+    molecular weight of a state with energy comes from T and gamma."""
     cd = port_chem(64, primordial_chemistry=2)
     fields = state(cd, n=16)
     fc = FluidContainer(cd, 16)
@@ -173,7 +199,14 @@ def test_fluid_container_solve():
     for key in ["HI", "H2I", "de", "energy"]:
         assert fc[key].dtype == np.float64
         np.testing.assert_array_equal(fc[key], want[key].numpy())
-    with pytest.raises(NotImplementedError, match="derived fields"):
-        fc.calculate_temperature()
-    with pytest.raises(NotImplementedError, match="derived fields"):
-        cd.calculate_cooling_time(fields)
+    solved = fc._solver_fields()
+    for name in ["cooling_time", "temperature", "pressure", "gamma",
+                 "dust_temperature"]:
+        getattr(fc, f"calculate_{name}")()
+        want = getattr(cd, f"calculate_{name}")(solved)
+        assert fc[name].dtype == np.float64
+        np.testing.assert_array_equal(fc[name], want.numpy(), err_msg=name)
+    fc.calculate_mean_molecular_weight()
+    np.testing.assert_array_equal(
+        fc["mu"], fc["temperature"] / (fc["energy"] * (fc["gamma"] - 1.0)
+                                       * cd.temperature_units))
