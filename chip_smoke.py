@@ -16,15 +16,17 @@ one.  Phases:
 1. build: nvcc of csrc/network_update.cu, with its build seconds;
 2. kernel vs twin: the network-region inputs of the flagship state at the
    first and at a later subcycle, f64 and f32, at every cell and at the
-   compacted path's tile and batch widths; masks and counters must be
-   identical, per-field max relative error <= 1e-12 (f64) / 1e-4 (f32);
-   the median of 20 bare kernel launches and of 20 twin calls, timed with
-   CUDA events, beside the launch's bound (its bytes at 3.35 TB/s);
-2b. the same check for every network configuration the kernel takes
-   (primordial_chemistry 0-3, with and without dust, both deuterium
-   updates, compensated_sums, radiative transfer with and without
-   radiative_transfer_hydrogen_only, tabulated mode with the UVB) at
-   4,096 cells, subcycles 0 and 6;
+   compacted path's tile and batch widths, then at the batch width plus
+   one cell, with operands at odd element offsets and with the compacted
+   solve's packed carry; masks and counters must be identical and every
+   float output bit-identical (max rel 0); the median device time of 20
+   bare kernel launches and of 20 twin calls, each after an L2 flush,
+   beside the launch's bound (its bytes at 3.35 TB/s);
+2b. the same check for every network configuration the
+   kernel takes (primordial_chemistry 0-3, with and without dust, both
+   deuterium updates, compensated_sums, radiative transfer with and
+   without radiative_transfer_hydrogen_only, tabulated mode with the
+   UVB) at 4,096 cells, subcycles 0 and 6;
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
@@ -34,7 +36,11 @@ one.  Phases:
    share, peak CUDA memory, and kernel launches (must equal the
    subcycles run over every warm tile and trip), at precision 64 and 32;
 4b. one monolithic f64 flagship solve: its fields and per-cell subcycle
-   counts must be bit-identical to phase 4's compacted f64 solve.
+   counts must be bit-identical to phase 4's compacted f64 solve;
+5. the launch the kernel line reports (f64, subcycle 24, the batch
+   width), timed again with CUDA events and by torch.profiler's kernel
+   duration.  It runs last because a profiler session slows every later
+   launch of the process, and with it phases 3 to 4b.
 
 Each phase prints one line.  Then one JSON line lists the kernels, and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
@@ -60,15 +66,24 @@ DT_FLAGSHIP = 1.0e-4
 CAPTURE_AT = (0, 24)  # subcycles whose network inputs phase 2 replays
 N_CONFIGS = 4096  # cells of phase 2b's per-configuration checks
 TIMING_REPS = 20
+#: bytes zeroed before each timed launch: five times the H100's 50 MB L2
+FLUSH_BYTES = 256 * 2**20
 #: the least time of one network launch: its bytes at the published
-#: 3.35 TB/s of an H100 SXM, or its arithmetic (about 500 operations a
-#: cell on the flagship path, counted from the source) at the published
-#: 34 TFLOP/s of float64 outside the tensor cores (67 in float32)
+#: 3.35 TB/s of an H100 SXM, or its arithmetic at the card's rate of
+#: floating-point instructions.  OPS_PER_CELL is, per element size, the
+#: add, multiply, FMA and compare instructions of that type in the
+#: kernel's sm_90a code, a static count (scripts/time_network_kernel.py,
+#: from `cuobjdump -sass`): the body has no loops, so it is about what a
+#: cell runs, with the branches of other configurations in it.  The
+#: published 34 TFLOP/s of float64 outside the tensor cores (67 in
+#: float32) count an FMA as two operations: half of it is the rate of
+#: instructions
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_CELL = 500
-PEAK_OPS_PER_S = {8: 34.0e12, 4: 67.0e12}
-F64_RTOL = 1.0e-12
-F32_RTOL = 1.0e-4
+OPS_PER_CELL = {8: 969, 4: 858}
+PEAK_OPS_PER_S = {8: 17.0e12, 4: 33.5e12}
+#: the kernel runs its twin's IEEE operations in the same order: every
+#: float output must be bit-identical, in f32 and f64
+KERNEL_RTOL = 0.0
 ANSWER_RTOL = 1.0e-6
 
 
@@ -383,23 +398,70 @@ def capture_network_inputs(cd, fields, dt, at):
     return captured
 
 
-def head_inputs(inp, n):
-    """Captured network inputs cut to their first ``n`` cells (each
-    tensor a contiguous prefix)."""
+def map_inputs(inp, fn):
+    """Captured network inputs with ``fn`` applied to every tensor."""
     import dataclasses
 
     import torch
 
-    def head(x):
+    def walk(x):
         if isinstance(x, dict):
-            return {k: head(v) for k, v in x.items()}
-        return x[:n] if isinstance(x, torch.Tensor) else x
+            return {k: walk(v) for k, v in x.items()}
+        return fn(x) if isinstance(x, torch.Tensor) else x
 
-    out = {k: head(v) for k, v in inp.items() if k != "rs"}
+    out = {k: walk(v) for k, v in inp.items() if k != "rs"}
     rs = inp["rs"]
     out["rs"] = None if rs is None else dataclasses.replace(
-        rs, k=head(rs.k), shields=head(rs.shields), h2dust=head(rs.h2dust),
+        rs, k=walk(rs.k), shields=walk(rs.shields), h2dust=walk(rs.h2dust),
         k13dd=None, ti=None)
+    return out
+
+
+def head_inputs(inp, n):
+    """Captured network inputs cut to their first ``n`` cells (each
+    tensor a contiguous prefix)."""
+    return map_inputs(inp, lambda x: x[:n])
+
+
+def offset_inputs(inp, n, every=1):
+    """Captured network inputs cut to ``n`` cells, every ``every``-th
+    tensor handed over as the view ``buf[1:n+1]`` of a buffer one element
+    longer: an odd element offset, so that operand's loads are not
+    aligned to 16 bytes."""
+    import torch
+
+    seen = [0]
+
+    def view(x):
+        seen[0] += 1
+        if (seen[0] - 1) % every:
+            return x[:n]
+        buf = torch.empty(n + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x[:n]
+        return buf[1:]
+
+    return map_inputs(inp, view)
+
+
+def packed_inputs(inp, n, start=3):
+    """Captured network inputs cut to ``n`` cells, with the float fields
+    and carry as rows of one ``(C, start + n)`` tensor, taken as
+    ops/solver.solve_rate_cool_compacted takes its last warm tile
+    (``M[:, start:start + n]``, one row per operand): the rows sit at
+    offsets that are 16-byte aligned for some rows and not for others."""
+    import torch
+
+    out = head_inputs(inp, n)
+    rows = [(d, k) for d in (out["f"], out["carry_v"])
+            for k, v in d.items() if v.is_floating_point()]
+    ref = out["f"]["density"]
+    packed = torch.zeros(len(rows), start + n, dtype=ref.dtype,
+                         device=ref.device)
+    for r, (d, k) in enumerate(rows):
+        packed[r, start:] = d[k]
+    cols = packed[:, start:start + n]
+    for r, (d, k) in enumerate(rows):
+        d[k] = cols[r]
     return out
 
 
@@ -430,20 +492,51 @@ def compare_outputs(kern, twin):
 
 
 def cuda_median_ms(fn, reps=TIMING_REPS):
+    """Median device time in ms of ``fn``'s work on the current stream,
+    after one warm-up call.  Before each timed call a zero fill of
+    FLUSH_BYTES evicts the L2 (so ``fn`` finds its operands in device
+    memory, as a subcycle does) and keeps the device busy while the host
+    records the start event, submits ``fn`` and records the end event:
+    the two events bracket the device's work, not the host's."""
     import torch
 
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def profiler_kernel_ms(fn, kernel, reps=TIMING_REPS):
+    """The same launches as cuda_median_ms, under torch.profiler: the
+    median duration in ms of the device kernels whose name contains
+    ``kernel``, or None when the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+    return float(np.median(times)) if times else None
 
 
 class Smoke:
@@ -490,10 +583,10 @@ class Smoke:
         return (f"built {os.path.relpath(path, REPO)} in {secs:.2f} s; "
                 f"ptxas: {log or '(cached build)'}")
 
-    def check_kernel(self, label, cfg, inp, bound):
+    def check_kernel(self, label, cfg, inp):
         """Kernel vs twin on one set of captured network inputs; raises
         unless masks and counters are identical and the worst relative
-        error is within ``bound``.  Returns (message, kernel arguments,
+        error is within KERNEL_RTOL.  Returns (message, kernel arguments,
         worst relative error)."""
         import torch
 
@@ -511,18 +604,23 @@ class Smoke:
         active = int(inp["carry_v"]["itmask"].sum())
         msg = (f"{label} ({active} active): max rel {rel:.3e} abs "
                f"{abs_err:.3e}, masks {'identical' if exact else 'DIFFER'}")
-        if not (exact and rel <= bound):
-            raise AssertionError(msg + f" (bound {bound:.0e})")
+        if not (exact and rel <= KERNEL_RTOL):
+            raise AssertionError(msg + f" (bound {KERNEL_RTOL:.0e})")
         return msg, args, rel
 
     def kernel_vs_twin(self):
         """The flagship network inputs, f64 and f32, at the widths the
         solves launch the kernel with: every cell (the monolithic path),
         the compacted path's warm tile and its batch (the first cells of
-        the same inputs).  CUDA-event times of the bare kernel launch and
-        of the twin, beside the launch's bound.  The kernel line reports
-        f64 at the batch width, the shape of most of the main path's
-        launches."""
+        the same inputs).  Then, at the later subcycle, the addressing the
+        kernel must get right: a width that is not a whole number of
+        tiles, operands at an odd element offset (all of them, and every
+        other one), and the packed carry of the compacted solve.  Device
+        times (cuda_median_ms) of the bare kernel launch and of the twin
+        beside the launch's bound, with its grid.
+        The kernel line reports the batch-width f64 launch at the later
+        subcycle, the shape of most of the main path's launches; phase 5
+        times it under torch.profiler as well."""
         import torch
 
         from grackle_tpu_torch.api import _compact_batch
@@ -532,8 +630,10 @@ class Smoke:
 
         batch = _compact_batch(N_FLAGSHIP)
         widths = (N_FLAGSHIP, min(warm_tile_width(batch), N_FLAGSHIP), batch)
-        parts = []
-        for precision, bound in ((64, F64_RTOL), (32, F32_RTOL)):
+        parts = [f"times are device ms, CUDA events around the bare call "
+                 f"after a {FLUSH_BYTES >> 20} MB L2 flush, median of "
+                 f"{TIMING_REPS} (phase 5 holds one against torch.profiler)"]
+        for precision in (64, 32):
             cd = flagship_chem(precision, "cuda")
             cfg = cd.context.config
             fields = flagship_fields(cd, N_FLAGSHIP)
@@ -542,23 +642,40 @@ class Smoke:
                 for n in widths:
                     msg, args, _ = self.check_kernel(
                         f"f{precision} subcycle {step} {n} cells", cfg,
-                        head_inputs(inp, n), bound)
+                        head_inputs(inp, n))
                     launch, _ = prepare_launch(*args)
                     ms_k = cuda_median_ms(launch)
                     ms_t = cuda_median_ms(
                         lambda: plain.network_update(*args))
                     size = inp["f"]["density"].element_size()
                     bytes_ms = launch.bytes / HBM_BYTES_PER_S * 1e3
-                    ops_ms = OPS_PER_CELL * n / PEAK_OPS_PER_S[size] * 1e3
-                    parts.append(f"{msg}; kernel {ms_k:.4f} ms, twin "
-                                 f"{ms_t:.4f} ms, {launch.bytes} B, bound "
-                                 f"{max(bytes_ms, ops_ms):.4f} ms")
+                    ops_ms = (OPS_PER_CELL[size] * n
+                              / PEAK_OPS_PER_S[size] * 1e3)
+                    bound = max(bytes_ms, ops_ms)
+                    parts.append(
+                        f"{msg}; kernel {ms_k:.4f} ms ({bound / ms_k:.0%} "
+                        f"of bound), twin {ms_t:.4f} ms, {launch.bytes} B, "
+                        f"bound {bound:.4f} ms, {launch.grid} CTAs "
+                        f"({launch.ctas_per_sm} per SM)")
                     if (precision, step, n) == (64, CAPTURE_AT[1], batch):
                         self.kernel.update(
-                            ms=ms_k, plain_ms=ms_t,
-                            bound_ms=max(bytes_ms, ops_ms),
+                            ms=ms_k, plain_ms=ms_t, bound_ms=bound,
                             bound_by="bytes" if bytes_ms >= ops_ms
                             else "operations")
+                if step != CAPTURE_AT[1]:
+                    continue
+                for label, views in (
+                        (f"{batch + 1} cells, a partial last tile",
+                         head_inputs(inp, batch + 1)),
+                        (f"{batch} cells, every operand at an odd offset",
+                         offset_inputs(inp, batch)),
+                        (f"{batch} cells, every other operand at an odd "
+                         f"offset", offset_inputs(inp, batch, every=2)),
+                        (f"{batch} cells, the compacted solve's packed "
+                         f"carry", packed_inputs(inp, batch))):
+                    parts.append(self.check_kernel(
+                        f"f{precision} subcycle {step} {label}", cfg,
+                        views)[0])
             del cd, fields
             torch.cuda.empty_cache()
         return "; ".join(parts)
@@ -570,7 +687,7 @@ class Smoke:
         and f32, at subcycles 0 and 6 of the answer-workload state."""
         parts = []
         for name, kw in NETWORK_CASES.items():
-            for precision, bound in ((64, F64_RTOL), (32, F32_RTOL)):
+            for precision in (64, 32):
                 cd = answer_chem("cuda", precision=precision, **kw)
                 state = answer_state(cd, n=N_CONFIGS)
                 worst = []
@@ -578,7 +695,7 @@ class Smoke:
                         cd, state, 1.0e-4, (0, 6)):
                     _, _, rel = self.check_kernel(
                         f"{name} f{precision} subcycle {step}",
-                        cd.context.config, inp, bound)
+                        cd.context.config, inp)
                     worst.append(f"{rel:.3e}")
                 parts.append(f"{name} f{precision} max rel "
                              f"{'/'.join(worst)}")
@@ -652,6 +769,29 @@ class Smoke:
                     f" max {float(rel.max()):.2e}")
         return msg
 
+    def profiled_kernel(self):
+        """The kernel line's launch (f64 flagship inputs at subcycle
+        CAPTURE_AT[1], cut to the compacted batch) timed with CUDA events
+        and by torch.profiler's duration of the kernel."""
+        from grackle_tpu_torch.api import _compact_batch
+        from grackle_tpu_torch.ops.network_kernel import prepare_launch
+
+        batch = _compact_batch(N_FLAGSHIP)
+        cd = flagship_chem(64, "cuda")
+        [(step, inp)] = capture_network_inputs(
+            cd, flagship_fields(cd, N_FLAGSHIP), DT_FLAGSHIP,
+            CAPTURE_AT[1:])
+        view = head_inputs(inp, batch)
+        launch, _ = prepare_launch(
+            cd.context.config, view["us"], view["dt"], view["f"],
+            view["rs"], view["cool_v"], view["carry_v"], view["h2_limit"])
+        ms = cuda_median_ms(launch)
+        prof_ms = profiler_kernel_ms(launch, "network_update_kernel")
+        return (f"f64 subcycle {step}, {batch} cells: CUDA events {ms:.4f} "
+                f"ms, torch.profiler kernel duration "
+                + (f"{prof_ms:.4f} ms" if prof_ms is not None
+                   else "not measured (no kernel recorded)"))
+
     def monolithic(self):
         """One monolithic f64 flagship solve (solver_compaction = 0, no
         warm-up): its fields and per-cell subcycle counts must equal the
@@ -721,6 +861,7 @@ def main() -> int:
     smoke.phase("4 flagship f64", lambda: smoke.flagship(64))
     smoke.phase("4 flagship f32", lambda: smoke.flagship(32))
     smoke.phase("4b monolithic f64 vs compacted", smoke.monolithic)
+    smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [smoke.kernel]}), flush=True)
     if not smoke.ok:

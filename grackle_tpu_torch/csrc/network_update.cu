@@ -10,23 +10,40 @@
 // operation for operation, in the same order.  That Python function is
 // this kernel's plain twin; change the two together.
 //
-// What bounds it on an H100: memory.  The region has no transcendentals
-// and no reductions (a few hundred flops per cell), while the flagship
+// What bounds it on an H100: memory, and the latency of the body.  The
+// region has no transcendentals and no reductions, while the flagship
 // 12-species configuration reads 70 per-cell operands and writes 22:
-// about 92 arrays x 8 B x 1,048,576 cells, ~0.8 GB per launch in f64.
-// Every option of the Pallas kernel is taken: primordial_chemistry 0-3
-// (0, tabulated mode, updates only the energy and the clock), the
-// Neumaier pairs of compensated_sums = 1 (energy_lo / ttot_lo in and out)
-// and the radiative-transfer ionization-rate fields.
-// The plain twin runs the same arithmetic as hundreds of separate
-// elementwise PyTorch ops, each a full pass over device memory.  This
-// kernel reads every operand once and writes every result once, from one
-// thread per cell that keeps all intermediates in registers.
+// 700 B a cell in f64, 57 MB for the compacted path's 81,920-cell batch
+// and 734 MB at 1,048,576 cells.  The f64 build has about 970
+// double-precision instructions (a static count of its sm_90a code, with
+// some 30 IEEE divisions expanded among them; chip_smoke.py
+// OPS_PER_CELL), a quarter of the bytes' time at the card's f64 rate but
+// in long dependent chains: a warp takes microseconds per cell and an SM
+// needs many warps in flight to keep memory busy.  Every option of the
+// Pallas kernel is taken: primordial_chemistry 0-3 (0, tabulated mode,
+// updates only the energy and the clock), the Neumaier pairs of
+// compensated_sums = 1 (energy_lo / ttot_lo in and out) and the
+// radiative-transfer ionization-rate fields.
 //
-// Layout: one thread per cell, grid-stride, any n.  All operand pointers
-// ride in one struct passed by value (under the 4 KB parameter limit).
-// Configuration flags are runtime ints, uniform over the grid, so the
-// branches never diverge within a warp.  Masks are bytes (torch.bool).
+// Design, for Hopper:
+// - A persistent grid: min(tiles, CTAs per SM x SMs) CTAs, each walking
+//   the tiles blockIdx.x, blockIdx.x + gridDim.x, ... of TILE = 128
+//   cells, one cell a thread, at the occupancy of MIN_CTAS_PER_SM.  The
+//   SM count and the occupancy are queried once per device, not per
+//   launch.
+// - The threads load their operands through the read-only path (__ldg)
+//   and store their results through __restrict__ pointers, so no load
+//   waits for an earlier store.  Staging a tile's operands in shared
+//   memory with TMA bulk copies measured slower at every width on the
+//   H100 (PERF.md): the twelve warps that the body's latency needs fill
+//   the SM's shared memory with one f64 stage each, so a stage cannot be
+//   refilled while its tile computes.
+// - All operand pointers ride in one struct passed by value as a
+//   __grid_constant__ parameter (under the 4 KB limit).  Outputs are
+//   plain coalesced stores: neighbouring threads, neighbouring cells.
+//   The configuration flags are runtime ints, uniform over the grid, so
+//   the branches never diverge within a warp.  Masks are bytes
+//   (torch.bool).
 //
 // Numerics: built with -fmad=false and IEEE division, so no product is
 // contracted into an FMA: each operation rounds as the twin's separate
@@ -83,6 +100,17 @@ enum Out {
 
 }  // namespace
 
+// Cells per tile: a CTA is four warps, one cell a thread
+// (ops/network_kernel.py TILE).  The launch bounds keep MIN_CTAS_PER_SM
+// CTAs resident on an SM: three in f64 (at most 168 registers a thread)
+// and five in f32 (at most 102), so twelve or twenty warps an SM hide the
+// body's long dependency chains.  Left to itself the compiler gives the
+// f32 body 108 registers, four CTAs an SM, and that build measured 12%
+// slower at 81,920 cells (PERF.md).
+constexpr int TILE = 128;
+template <typename T>
+constexpr int MIN_CTAS_PER_SM = sizeof(T) == 8 ? 3 : 5;
+
 // Launch arguments; mirrored field for field by ops/network_kernel.py
 // _NetworkArgs (a ctypes.Structure).
 struct NetworkArgs {
@@ -125,15 +153,16 @@ __device__ __forceinline__ T tabs(T a) {
   return a < T(0) ? -a : (a == T(0) ? T(0) : a);
 }
 
-template <typename T>
-__device__ __forceinline__ T ld(const NetworkArgs& a, int slot, long long i) {
-  return static_cast<const T*>(a.in[slot])[i];
+template <typename V>
+__device__ __forceinline__ V ld(const NetworkArgs& a, long long i, int slot) {
+  return __ldg(static_cast<const V*>(a.in[slot]) + i);
 }
 
-template <typename T>
-__device__ __forceinline__ void st(const NetworkArgs& a, int slot,
-                                   long long i, T v) {
-  static_cast<T*>(a.out[slot])[i] = v;
+template <typename V>
+__device__ __forceinline__ void st(const NetworkArgs& a, long long i,
+                                   int slot, V v) {
+  V* __restrict__ out = static_cast<V*>(a.out[slot]);
+  out[i] = v;
 }
 
 // (hi + lo) + x as a renormalized pair (Neumaier two-sum); the twin's
@@ -149,7 +178,8 @@ __device__ __forceinline__ void two_sum(T hi, T lo, T x, T& hi_out,
 }
 
 template <typename T>
-__device__ void network_cell(const NetworkArgs& a, long long i) {
+__device__ __forceinline__ void network_cell(const NetworkArgs& a,
+                                             long long i) {
   const int isp = a.ispecies;
   const bool dust = a.anydust != 0;
   const bool comp = a.compensated != 0;
@@ -161,78 +191,78 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
   const T dt = T(a.dt);
   const T dom = T(a.dom);
 
-  const bool itmask = static_cast<const uint8_t*>(a.in[I_itmask])[i] != 0;
-  const int it = static_cast<const int*>(a.in[I_cell_it])[i];
-  const bool capped = static_cast<const uint8_t*>(a.in[I_capped])[i] != 0;
-  const T ttot = ld<T>(a, I_ttot, i);
-  const T energy_lo = comp ? ld<T>(a, I_energy_lo, i) : T(0);
-  const T ttot_lo = comp ? ld<T>(a, I_ttot_lo, i) : T(0);
+  const bool itmask = ld<uint8_t>(a, i, I_itmask) != 0;
+  const int it = ld<int>(a, i, I_cell_it);
+  const bool capped = ld<uint8_t>(a, i, I_capped) != 0;
+  const T ttot = ld<T>(a, i, I_ttot);
+  const T energy_lo = comp ? ld<T>(a, i, I_energy_lo) : T(0);
+  const T ttot_lo = comp ? ld<T>(a, i, I_ttot_lo) : T(0);
 
-  const T density = ld<T>(a, I_density, i);
-  const T energy_in = ld<T>(a, I_energy, i);
+  const T density = ld<T>(a, i, I_density);
+  const T energy_in = ld<T>(a, i, I_energy);
   T de = 0, HI = 0, HII = 0, HeI = 0, HeII = 0, HeIII = 0;
   T HM = 0, H2I = 0, H2II = 0, DI = 0, DII = 0, HDI = 0;
   if (isp > 0) {
-    de = ld<T>(a, I_de, i);
-    HI = ld<T>(a, I_HI, i);
-    HII = ld<T>(a, I_HII, i);
-    HeI = ld<T>(a, I_HeI, i);
-    HeII = ld<T>(a, I_HeII, i);
-    HeIII = ld<T>(a, I_HeIII, i);
+    de = ld<T>(a, i, I_de);
+    HI = ld<T>(a, i, I_HI);
+    HII = ld<T>(a, i, I_HII);
+    HeI = ld<T>(a, i, I_HeI);
+    HeII = ld<T>(a, i, I_HeII);
+    HeIII = ld<T>(a, i, I_HeIII);
   }
   if (isp > 1) {
-    HM = ld<T>(a, I_HM, i);
-    H2I = ld<T>(a, I_H2I, i);
-    H2II = ld<T>(a, I_H2II, i);
+    HM = ld<T>(a, i, I_HM);
+    H2I = ld<T>(a, i, I_H2I);
+    H2II = ld<T>(a, i, I_H2II);
   }
   if (isp > 2) {
-    DI = ld<T>(a, I_DI, i);
-    DII = ld<T>(a, I_DII, i);
-    HDI = ld<T>(a, I_HDI, i);
+    DI = ld<T>(a, i, I_DI);
+    DII = ld<T>(a, i, I_DII);
+    HDI = ld<T>(a, i, I_HDI);
   }
-  const T kphHI = irt ? ld<T>(a, I_RT_HI_ionization_rate, i) : T(0);
-  const T kphHeI = rt_all ? ld<T>(a, I_RT_HeI_ionization_rate, i) : T(0);
-  const T kphHeII = rt_all ? ld<T>(a, I_RT_HeII_ionization_rate, i) : T(0);
+  const T kphHI = irt ? ld<T>(a, i, I_RT_HI_ionization_rate) : T(0);
+  const T kphHeI = rt_all ? ld<T>(a, i, I_RT_HeI_ionization_rate) : T(0);
+  const T kphHeII = rt_all ? ld<T>(a, i, I_RT_HeII_ionization_rate) : T(0);
 
   T k1 = 0, k2 = 0, k3 = 0, k4 = 0, k5 = 0, k6 = 0, k57 = 0, k58 = 0;
   if (isp > 0) {
-    k1 = ld<T>(a, I_k1, i); k2 = ld<T>(a, I_k2, i);
-    k3 = ld<T>(a, I_k3, i); k4 = ld<T>(a, I_k4, i);
-    k5 = ld<T>(a, I_k5, i); k6 = ld<T>(a, I_k6, i);
-    k57 = ld<T>(a, I_k57, i); k58 = ld<T>(a, I_k58, i);
+    k1 = ld<T>(a, i, I_k1); k2 = ld<T>(a, i, I_k2);
+    k3 = ld<T>(a, i, I_k3); k4 = ld<T>(a, i, I_k4);
+    k5 = ld<T>(a, i, I_k5); k6 = ld<T>(a, i, I_k6);
+    k57 = ld<T>(a, i, I_k57); k58 = ld<T>(a, i, I_k58);
   }
   T k7 = 0, k8 = 0, k9 = 0, k10 = 0, k11 = 0, k12 = 0, k13 = 0, k14 = 0,
     k15 = 0, k16 = 0, k17 = 0, k18 = 0, k19 = 0, k22 = 0, n_cr_n = 0,
     n_cr_d1 = 0, n_cr_d2 = 0;
   if (isp > 1) {
-    k7 = ld<T>(a, I_k7, i); k8 = ld<T>(a, I_k8, i);
-    k9 = ld<T>(a, I_k9, i); k10 = ld<T>(a, I_k10, i);
-    k11 = ld<T>(a, I_k11, i); k12 = ld<T>(a, I_k12, i);
-    k13 = ld<T>(a, I_k13, i); k14 = ld<T>(a, I_k14, i);
-    k15 = ld<T>(a, I_k15, i); k16 = ld<T>(a, I_k16, i);
-    k17 = ld<T>(a, I_k17, i); k18 = ld<T>(a, I_k18, i);
-    k19 = ld<T>(a, I_k19, i); k22 = ld<T>(a, I_k22, i);
-    n_cr_n = ld<T>(a, I_n_cr_n, i);
-    n_cr_d1 = ld<T>(a, I_n_cr_d1, i);
-    n_cr_d2 = ld<T>(a, I_n_cr_d2, i);
+    k7 = ld<T>(a, i, I_k7); k8 = ld<T>(a, i, I_k8);
+    k9 = ld<T>(a, i, I_k9); k10 = ld<T>(a, i, I_k10);
+    k11 = ld<T>(a, i, I_k11); k12 = ld<T>(a, i, I_k12);
+    k13 = ld<T>(a, i, I_k13); k14 = ld<T>(a, i, I_k14);
+    k15 = ld<T>(a, i, I_k15); k16 = ld<T>(a, i, I_k16);
+    k17 = ld<T>(a, i, I_k17); k18 = ld<T>(a, i, I_k18);
+    k19 = ld<T>(a, i, I_k19); k22 = ld<T>(a, i, I_k22);
+    n_cr_n = ld<T>(a, i, I_n_cr_n);
+    n_cr_d1 = ld<T>(a, i, I_n_cr_d1);
+    n_cr_d2 = ld<T>(a, i, I_n_cr_d2);
   }
   T s24 = 0, s25 = 0, s26 = 0;
   if (isp > 0) {
-    s24 = ld<T>(a, I_s24, i); s25 = ld<T>(a, I_s25, i);
-    s26 = ld<T>(a, I_s26, i);
+    s24 = ld<T>(a, i, I_s24); s25 = ld<T>(a, i, I_s25);
+    s26 = ld<T>(a, i, I_s26);
   }
   T s28 = 0, s29 = 0, s30 = 0, s31 = 0;
   const T s27 = T(a.k27);
   if (isp > 1) {
-    s28 = ld<T>(a, I_s28, i); s29 = ld<T>(a, I_s29, i);
-    s30 = ld<T>(a, I_s30, i); s31 = ld<T>(a, I_s31, i);
+    s28 = ld<T>(a, i, I_s28); s29 = ld<T>(a, i, I_s29);
+    s30 = ld<T>(a, i, I_s30); s31 = ld<T>(a, i, I_s31);
   }
-  const T h2dust = dust && isp > 1 ? ld<T>(a, I_h2dust, i) : T(0);
+  const T h2dust = dust && isp > 1 ? ld<T>(a, i, I_h2dust) : T(0);
 
-  T edot = ld<T>(a, I_edot, i);
-  const T tgas = ld<T>(a, I_tgas, i);
-  const T p2d = ld<T>(a, I_p2d, i);
-  const T rhoH = ld<T>(a, I_rhoH, i);
+  T edot = ld<T>(a, i, I_edot);
+  const T tgas = ld<T>(a, i, I_tgas);
+  const T p2d = ld<T>(a, i, I_p2d);
+  const T rhoH = ld<T>(a, i, I_rhoH);
 
   // compensated: the true clock is ttot + ttot_lo
   const T t_resid = comp ? (dt - ttot) - ttot_lo : dt - ttot;
@@ -327,12 +357,12 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
       HIdot = tiny8;
     }
     if (it > 50) {
-      dedot = tmin(tabs(dedot), tabs(ld<T>(a, I_dedot_prev, i)));
-      HIdot = tmin(tabs(HIdot), tabs(ld<T>(a, I_HIdot_prev, i)));
+      dedot = tmin(tabs(dedot), tabs(ld<T>(a, i, I_dedot_prev)));
+      HIdot = tmin(tabs(HIdot), tabs(ld<T>(a, i, I_HIdot_prev)));
     }
     dtit = tmin(tmin(tabs(acc * de / dedot), tabs(acc * HI / HIdot)),
                 tmin(t_resid, T(a.half_dt)));
-    if (isp > 1) dtit = tmin(dtit, ld<T>(a, I_h2_limit, i));
+    if (isp > 1) dtit = tmin(dtit, ld<T>(a, i, I_h2_limit));
   }
 
   // ---- energy timestep (solve_rate_cool_g.F:698-750) ----
@@ -352,8 +382,8 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
       e_new = energy_in + edot / density * dtit;
     }
   }
-  st<T>(a, O_energy, i, e_new);
-  if (comp) st<T>(a, O_energy_lo, i, e_lo_new);
+  st<T>(a, i, O_energy, e_new);
+  if (comp) st<T>(a, i, O_energy_lo, e_lo_new);
 
   if (isp > 0) {
     // ---- step_rate: BE Gauss-Seidel sweep (F:1961-2413) ----
@@ -479,10 +509,10 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
 
     if (isp > 2) {
       // deuterium network (F:2310-2360)
-      const T k50 = ld<T>(a, I_k50, i), k51 = ld<T>(a, I_k51, i);
-      const T k52 = ld<T>(a, I_k52, i), k53 = ld<T>(a, I_k53, i);
-      const T k54 = ld<T>(a, I_k54, i), k55 = ld<T>(a, I_k55, i);
-      const T k56 = ld<T>(a, I_k56, i);
+      const T k50 = ld<T>(a, i, I_k50), k51 = ld<T>(a, i, I_k51);
+      const T k52 = ld<T>(a, i, I_k52), k53 = ld<T>(a, i, I_k53);
+      const T k54 = ld<T>(a, i, I_k54), k55 = ld<T>(a, i, I_k55);
+      const T k56 = ld<T>(a, i, I_k56);
       T xfer1 = k1 * de + k50 * HII + s24;
       if (irt) xfer1 = xfer1 + kphHI;
       const T leak1 = k54 * H2I / T(2.0) + k56 * HM;
@@ -533,30 +563,30 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
     if (isp > 1) de_o = de_o - HM_o + H2II_o / T(2.0);
     const T dedot_new = tabs(de_o - de) / dtit_floor;
 
-    st<T>(a, O_de, i, itmask ? de_o : de);
-    st<T>(a, O_HI, i, itmask ? HI_o : HI);
-    st<T>(a, O_HII, i, itmask ? HII_o : HII);
-    st<T>(a, O_HeI, i, itmask ? HeI_o : HeI);
-    st<T>(a, O_HeII, i, itmask ? HeII_o : HeII);
-    st<T>(a, O_HeIII, i, itmask ? HeIII_o : HeIII);
+    st<T>(a, i, O_de, itmask ? de_o : de);
+    st<T>(a, i, O_HI, itmask ? HI_o : HI);
+    st<T>(a, i, O_HII, itmask ? HII_o : HII);
+    st<T>(a, i, O_HeI, itmask ? HeI_o : HeI);
+    st<T>(a, i, O_HeII, itmask ? HeII_o : HeII);
+    st<T>(a, i, O_HeIII, itmask ? HeIII_o : HeIII);
     if (isp > 1) {
-      st<T>(a, O_HM, i, itmask ? HM_o : HM);
-      st<T>(a, O_H2I, i, itmask ? H2I_o : H2I);
-      st<T>(a, O_H2II, i, itmask ? H2II_o : H2II);
+      st<T>(a, i, O_HM, itmask ? HM_o : HM);
+      st<T>(a, i, O_H2I, itmask ? H2I_o : H2I);
+      st<T>(a, i, O_H2II, itmask ? H2II_o : H2II);
     }
     if (isp > 2) {
-      st<T>(a, O_DI, i, itmask ? tmax(DIp, tiny) : DI);
-      st<T>(a, O_DII, i, itmask ? tmax(DIIp, tiny) : DII);
-      st<T>(a, O_HDI, i, itmask ? tmax(HDIp, tiny) : HDI);
+      st<T>(a, i, O_DI, itmask ? tmax(DIp, tiny) : DI);
+      st<T>(a, i, O_DII, itmask ? tmax(DIIp, tiny) : DII);
+      st<T>(a, i, O_HDI, itmask ? tmax(HDIp, tiny) : HDI);
     }
-    st<T>(a, O_dedot_prev, i,
-          itmask ? dedot_new : ld<T>(a, I_dedot_prev, i));
-    st<T>(a, O_HIdot_prev, i,
-          itmask ? HIdot_new : ld<T>(a, I_HIdot_prev, i));
+    st<T>(a, i, O_dedot_prev,
+          itmask ? dedot_new : ld<T>(a, i, I_dedot_prev));
+    st<T>(a, i, O_HIdot_prev,
+          itmask ? HIdot_new : ld<T>(a, i, I_HIdot_prev));
   } else {
     // tabulated mode: no species, the rate history passes through
-    st<T>(a, O_dedot_prev, i, ld<T>(a, I_dedot_prev, i));
-    st<T>(a, O_HIdot_prev, i, ld<T>(a, I_HIdot_prev, i));
+    st<T>(a, i, O_dedot_prev, ld<T>(a, i, I_dedot_prev));
+    st<T>(a, i, O_HIdot_prev, ld<T>(a, i, I_HIdot_prev));
   }
 
   // advance cell clocks and retire finished cells (F:803-813)
@@ -570,31 +600,31 @@ __device__ void network_cell(const NetworkArgs& a, long long i) {
     ttot_new = done ? dt : t_hi;
     ttot_lo_new = done ? T(0.0) : t_lo;
     unfinished = tabs((dt - ttot_new) - ttot_lo_new) >= T(a.tol_dt);
-    st<T>(a, O_ttot_lo, i, ttot_lo_new);
+    st<T>(a, i, O_ttot_lo, ttot_lo_new);
   } else {
     ttot_new = tmin(ttot + (itmask ? dtit : dt), dt);
     unfinished = tabs(dt - ttot_new) >= T(a.tol_dt);
   }
   const int it_new = it + (itmask ? 1 : 0);
   const bool hit_cap = it_new >= a.max_iterations;
-  st<T>(a, O_ttot, i, ttot_new);
-  static_cast<int*>(a.out[O_cell_it])[i] = it_new;
-  static_cast<uint8_t*>(a.out[O_itmask])[i] =
-      (itmask && unfinished && !hit_cap) ? 1 : 0;
-  static_cast<uint8_t*>(a.out[O_capped])[i] =
-      (capped || (itmask && unfinished && hit_cap)) ? 1 : 0;
-  st<T>(a, O_tgasold, i,
-        itmask ? ld<T>(a, I_cool_tgasold, i) : ld<T>(a, I_tgasold, i));
-  st<T>(a, O_tdust, i,
-        itmask ? ld<T>(a, I_cool_tdust, i) : ld<T>(a, I_tdust, i));
-  st<T>(a, O_dtit_prev, i, itmask ? dtit : ld<T>(a, I_dtit_prev, i));
+  st<T>(a, i, O_ttot, ttot_new);
+  st<int>(a, i, O_cell_it, it_new);
+  st<uint8_t>(a, i, O_itmask, (itmask && unfinished && !hit_cap) ? 1 : 0);
+  st<uint8_t>(a, i, O_capped,
+              (capped || (itmask && unfinished && hit_cap)) ? 1 : 0);
+  st<T>(a, i, O_tgasold,
+        itmask ? ld<T>(a, i, I_cool_tgasold) : ld<T>(a, i, I_tgasold));
+  st<T>(a, i, O_tdust,
+        itmask ? ld<T>(a, i, I_cool_tdust) : ld<T>(a, i, I_tdust));
+  st<T>(a, i, O_dtit_prev, itmask ? dtit : ld<T>(a, i, I_dtit_prev));
 }
 
 template <typename T>
-__global__ void network_update_kernel(const NetworkArgs a) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < a.n; i += stride) {
+__global__ void __launch_bounds__(TILE, MIN_CTAS_PER_SM<T>)
+network_update_kernel(const __grid_constant__ NetworkArgs a) {
+  const long long stride = (long long)gridDim.x * TILE;
+  for (long long i = (long long)blockIdx.x * TILE + threadIdx.x; i < a.n;
+       i += stride) {
     network_cell<T>(a, i);
   }
 }
@@ -611,26 +641,34 @@ int grackle_network_slots(int* n_in, int* n_out) {
   return (int)sizeof(NetworkArgs);
 }
 
-// Launch on `stream` for float (is_double = 0) or double operands.
-// Returns cudaGetLastError() after the launch (0 = launched).
-int grackle_network_update(const NetworkArgs* args, int is_double,
+// Once per device: the tile, the SM count and how many CTAs of each
+// kernel are resident on one SM.  Returns a CUDA error code (0 = ready).
+int grackle_network_init(int* tile, int* sms, int* ctas_f64, int* ctas_f32) {
+  *tile = TILE;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_f64, network_update_kernel<double>, TILE, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_f32, network_update_kernel<float>, TILE, 0);
+  return (int)err;
+}
+
+// Launch `grid` CTAs on `stream` for float (is_double = 0) or double
+// operands.  Returns cudaGetLastError() after the launch (0 = launched).
+int grackle_network_update(const NetworkArgs* args, int is_double, int grid,
                            void* stream) {
   if (args->n <= 0) return 0;
-  const int threads = 128;
-  long long blocks = (args->n + threads - 1) / threads;
-  // grid-stride: cap the grid at a few waves of the card's SMs
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const long long max_blocks = (long long)sms * 32;
-  if (blocks > max_blocks) blocks = max_blocks;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    network_update_kernel<double><<<(unsigned)blocks, threads, 0, s>>>(*args);
+    network_update_kernel<double><<<grid, TILE, 0, s>>>(*args);
   } else {
-    network_update_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(*args);
+    network_update_kernel<float><<<grid, TILE, 0, s>>>(*args);
   }
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,10 @@ takes every configuration that kernel takes: primordial_chemistry 0-3,
 built at first use with ``nvcc`` for sm_90a from the source in this
 package, into ``grackle_tpu_torch/_build/`` (a shared library with a plain
 C interface, loaded with ctypes), and launched on PyTorch's current
-stream.  See the source's header for what bounds it and why it is shaped
-as it is.
+stream.  It is a persistent grid of CTAs, one cell a thread; this module
+picks the operands a configuration reads (:func:`input_slots`) and sizes
+the grid.  See the source's header for what bounds the kernel and why it
+is shaped as it is.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ NVCC_FLAGS = [
     "-Xptxas=-v",
 ]
 
+#: cells per tile, one thread each (a CTA of four warps):
+#: csrc/network_update.cu's TILE
+TILE = 128
+
 #: operand slots, in the order of csrc/network_update.cu's enum In
 SPECIES_SLOTS = ["de", "HI", "HII", "HeI", "HeII", "HeIII", "HM", "H2I",
                  "H2II", "DI", "DII", "HDI"]
@@ -62,12 +68,22 @@ CARRY_SLOTS = ["ttot", "tgasold", "tdust", "dedot_prev", "HIdot_prev",
 IN_SLOTS = (FIELD_SLOTS + K_SLOTS + SHIELD_SLOTS + ["h2dust"] + COOL_SLOTS
             + CARRY_SLOTS + ["h2_limit"])
 N_IN = len(IN_SLOTS)
+#: first slot of each group of IN_SLOTS
+_K0 = len(FIELD_SLOTS)
+_SHIELD0 = _K0 + len(K_SLOTS)
+_H2DUST = _SHIELD0 + len(SHIELD_SLOTS)
+_COOL0 = _H2DUST + 1
+_CARRY0 = _COOL0 + len(COOL_SLOTS)
+_H2_LIMIT = _CARRY0 + len(CARRY_SLOTS)
 #: output slots, in the order of csrc/network_update.cu's enum Out
 OUT_FIELD_SLOTS = ["energy"] + SPECIES_SLOTS
 OUT_CARRY_SLOTS = CARRY_SLOTS
 N_OUT = len(OUT_FIELD_SLOTS) + len(OUT_CARRY_SLOTS)
 #: carry slots that only compensated_sums = 1 uses
 COMPENSATED_SLOTS = ["energy_lo", "ttot_lo"]
+#: the carry's masks and counter; every other operand is the float type
+FLAG_DTYPES = {"itmask": torch.bool, "capped": torch.bool,
+               "cell_it": torch.int32}
 
 
 class _NetworkArgs(ctypes.Structure):
@@ -150,11 +166,13 @@ def load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.grackle_network_slots.argtypes = [
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            cint_p = ctypes.POINTER(ctypes.c_int)
+            lib.grackle_network_slots.argtypes = [cint_p, cint_p]
             lib.grackle_network_slots.restype = ctypes.c_int
+            lib.grackle_network_init.argtypes = [cint_p] * 4
+            lib.grackle_network_init.restype = ctypes.c_int
             lib.grackle_network_update.argtypes = [
-                ctypes.POINTER(_NetworkArgs), ctypes.c_int,
+                ctypes.POINTER(_NetworkArgs), ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
             lib.grackle_network_update.restype = ctypes.c_int
             n_in, n_out = ctypes.c_int(), ctypes.c_int()
@@ -172,22 +190,92 @@ def load():
     return _lib
 
 
-def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
-    """Check the operands of one network-region launch and allocate its
-    outputs.  Returns ``(launch, result)``: ``launch()`` runs the kernel
-    on the current stream, writing ``result`` (the carry dict
-    ``network_update`` returns), and counts nothing; ``launch.bytes`` is
-    what one launch must move, each operand read once and each result
-    written once.  Every tensor must be a contiguous [N] CUDA tensor of
-    one device; the float operands share one dtype (float32 or
-    float64)."""
+#: per device index: (SMs, CTAs per SM of the float32 and the float64
+#: kernel)
+_devices: dict = {}
+
+
+def _device_limits(lib, index):
+    """The SM count of one device and the resident CTAs per SM of each
+    kernel; queried once per device."""
+    if index not in _devices:
+        vals = [ctypes.c_int() for _ in range(4)]
+        with torch.cuda.device(index):
+            err = lib.grackle_network_init(*map(ctypes.byref, vals))
+        tile, sms, ctas64, ctas32 = (v.value for v in vals)
+        if err != 0 or min(ctas64, ctas32) < 1:
+            raise RuntimeError(f"network kernel set-up failed: CUDA error "
+                               f"{err}, {ctas64}/{ctas32} CTAs per SM")
+        if tile != TILE:
+            raise RuntimeError(f"network kernel layout mismatch: library "
+                               f"tiles {tile} cells, the wrapper {TILE}")
+        _devices[index] = (sms, ctas32, ctas64)
+    return _devices[index]
+
+
+def input_slots(cfg) -> list[int]:
+    """Indices into IN_SLOTS of the operands a launch for ``cfg`` reads.
+    The other slots stay null: never passed, never read."""
     ispecies = cfg.primordial_chemistry
     if ispecies not in (0, 1, 2, 3):
         raise ValueError(f"network kernel: primordial_chemistry = "
                          f"{ispecies} is not 0-3")
     anydust = (cfg.h2_on_dust > 0) or (cfg.dust_chemistry > 0)
+    fields = {"density", "energy"}
+    fields.update(SPECIES_SLOTS[:(0, 6, 9, 12)[ispecies]])
+    if cfg.use_radiative_transfer == 1 and ispecies > 0:
+        fields.update(RT_SLOTS[:1 if cfg.radiative_transfer_hydrogen_only
+                               else 3])
+    used = [j for j, name in enumerate(FIELD_SLOTS) if name in fields]
+    # k1-k58 from chemistry 1, k7-n_cr_d2 from 2, k50-k56 from 3
+    used += [_K0 + j for j in range((0, 8, 25, len(K_SLOTS))[ispecies])]
+    used += [_SHIELD0 + j for j in range((0, 3, 7, 7)[ispecies])]
+    if anydust and ispecies > 1:
+        used.append(_H2DUST)
+    used += [_COOL0 + j for j in range(len(COOL_SLOTS))]
+    used += [_CARRY0 + j for j, name in enumerate(CARRY_SLOTS)
+             if cfg.compensated_sums == 1 or name not in COMPENSATED_SLOTS]
+    if ispecies > 1:
+        used.append(_H2_LIMIT)
+    return used
+
+
+def slot_dtype(j, dtype):
+    """Element type of input slot ``j`` in a launch of float ``dtype``."""
+    return FLAG_DTYPES.get(IN_SLOTS[j], dtype) if j >= _CARRY0 else dtype
+
+
+def _input(j, f, rs, cool_v, carry_v, h2_limit):
+    """(tensor, label) of input slot ``j``."""
+    name = IN_SLOTS[j]
+    if j < _K0:
+        return f[name], name
+    if j < _SHIELD0:
+        return rs.k[name], name
+    if j < _H2DUST:
+        return rs.shields[name], f"shield {name}"
+    if j == _H2DUST:
+        return rs.h2dust, "h2dust"
+    if j < _CARRY0:
+        return cool_v[name], f"cool {name}"
+    if j < _H2_LIMIT:
+        return carry_v[name], f"carry {name}"
+    return h2_limit, "h2_limit"
+
+
+def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
+    """Check the operands of one network-region launch, allocate its
+    outputs and size its grid.  Returns ``(launch, result)``: ``launch()``
+    runs the kernel on the current stream, writing ``result`` (the carry
+    dict ``network_update`` returns), and counts nothing.
+    ``launch.bytes`` is what one launch must move, each operand read once
+    and each result written once; ``launch.grid`` the CTAs and
+    ``launch.ctas_per_sm`` how many are resident on one SM.  Every tensor
+    must be a contiguous [N] CUDA tensor of one device, at any offset;
+    the float operands share one dtype (float32 or float64)."""
+    slots = input_slots(cfg)
+    ispecies = cfg.primordial_chemistry
     compensated = cfg.compensated_sums == 1
-    rt = cfg.use_radiative_transfer == 1
     ref = f["density"]
     dtype, device, n = ref.dtype, ref.device, ref.shape[0]
     if device.type != "cuda":
@@ -195,23 +283,9 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
                          f"{device}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"network kernel takes float32/float64, got {dtype}")
-
-    species = SPECIES_SLOTS[:(0, 6, 9, 12)[ispecies]]
-    rt_used = []
-    if rt and ispecies > 0:
-        rt_used = RT_SLOTS[:1 if cfg.radiative_transfer_hydrogen_only
-                           else 3]
-    k_used = ((K_SLOTS[:8] if ispecies > 0 else [])
-              + (K_SLOTS[8:25] if ispecies > 1 else [])
-              + (K_SLOTS[25:] if ispecies > 2 else []))
-    sh_used = SHIELD_SLOTS[:(0, 3, 7, 7)[ispecies]]
-    carry_used = [name for name in CARRY_SLOTS
-                  if compensated or name not in COMPENSATED_SLOTS]
-    want = {"itmask": torch.bool, "capped": torch.bool,
-            "cell_it": torch.int32}
     moved = 0
 
-    def check(t, name, want=dtype):
+    def check(t, name, want):
         nonlocal moved
         if (not isinstance(t, torch.Tensor) or t.device != device
                 or t.dtype != want or t.shape != (n,)
@@ -226,38 +300,17 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
         return t.data_ptr()
 
     ptrs = [None] * N_IN
-    base = 0
-    for j, name in enumerate(FIELD_SLOTS):
-        if name in ("density", "energy") or name in species + rt_used:
-            ptrs[base + j] = check(f[name], name)
-    base += len(FIELD_SLOTS)
-    for j, name in enumerate(K_SLOTS):
-        if name in k_used:
-            ptrs[base + j] = check(rs.k[name], name)
-    base += len(K_SLOTS)
-    for j, name in enumerate(SHIELD_SLOTS):
-        if name in sh_used:
-            ptrs[base + j] = check(rs.shields[name], f"shield {name}")
-    base += len(SHIELD_SLOTS)
-    if anydust and ispecies > 1:
-        ptrs[base] = check(rs.h2dust, "h2dust")
-    base += 1
-    for j, name in enumerate(COOL_SLOTS):
-        ptrs[base + j] = check(cool_v[name], f"cool {name}")
-    base += len(COOL_SLOTS)
-    for j, name in enumerate(CARRY_SLOTS):
-        if name in carry_used:
-            ptrs[base + j] = check(carry_v[name], f"carry {name}",
-                                   want.get(name, dtype))
-    base += len(CARRY_SLOTS)
-    if ispecies > 1:
-        ptrs[base] = check(h2_limit, "h2_limit")
+    for j in slots:
+        t, label = _input(j, f, rs, cool_v, carry_v, h2_limit)
+        ptrs[j] = check(t, label, slot_dtype(j, dtype))
 
+    species = SPECIES_SLOTS[:(0, 6, 9, 12)[ispecies]]
     fields_out = {name: torch.empty_like(ref) for name in
                   ["energy"] + species}
-    carry_out = {name: torch.empty(n, dtype=want.get(name, dtype),
+    carry_out = {name: torch.empty(n, dtype=FLAG_DTYPES.get(name, dtype),
                                    device=device)
-                 for name in carry_used}
+                 for name in CARRY_SLOTS
+                 if compensated or name not in COMPENSATED_SLOTS}
     optrs = [None] * N_OUT
     for j, name in enumerate(OUT_FIELD_SLOTS):
         if name in fields_out:
@@ -268,13 +321,23 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     moved += sum(t.element_size() * n for t in
                  list(fields_out.values()) + list(carry_out.values()))
 
+    lib = load()
+    is_double = int(dtype == torch.float64)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms, *ctas = _device_limits(lib, index)
+    ctas_per_sm = ctas[is_double]
+    grid = max(1, min(-(-n // TILE), ctas_per_sm * sms))
+
     tolerance = dtype_tolerance(dtype)
     args = _NetworkArgs(
-        n=n, ispecies=ispecies, anydust=int(anydust),
+        n=n, ispecies=ispecies,
+        anydust=int(cfg.h2_on_dust > 0 or cfg.dust_chemistry > 0),
         with_radiative_cooling=int(cfg.with_radiative_cooling),
         deuterium_coupled=int(cfg.deuterium_coupled_solve),
         max_iterations=int(cfg.max_iterations),
-        compensated=int(compensated), rt=int(rt),
+        compensated=int(compensated),
+        rt=int(cfg.use_radiative_transfer == 1),
         rt_hydrogen_only=int(cfg.radiative_transfer_hydrogen_only),
         dt=float(dt), half_dt=0.5 * dt, tol_dt=tolerance * dt,
         tiny8=dtype_tiny8(dtype), huge8=dtype_huge8(dtype),
@@ -286,19 +349,20 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     )
     args.inp[:] = ptrs
     args.out[:] = optrs
-    lib = load()
-    is_double = int(dtype == torch.float64)
 
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.grackle_network_update(
-                ctypes.byref(args), is_double, ctypes.c_void_p(stream))
+                ctypes.byref(args), is_double, grid,
+                ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"network kernel launch failed: CUDA error "
                                f"{err}")
 
     launch.bytes = moved
+    launch.grid = grid
+    launch.ctas_per_sm = ctas_per_sm
     return launch, dict(fields=fields_out, **carry_out)
 
 

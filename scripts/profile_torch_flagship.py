@@ -4,9 +4,10 @@ CUDA card.
 
 Builds the flagship state of chip_smoke.py (12 species, dust, metal
 cooling, CMB floor; 1,048,576 cells, seed 11, dt 1e-4), runs WARM
-subcycles, then times the stages of the next STEPS subcycles with a
-synchronise around each (cool1d_multi with its dust-temperature solve,
-lookup_cool_rates, the H2-equilibrium limit, the network kernel), and
+subcycles, then times the stages of the next STEPS subcycles (mean and
+slowest) with a synchronise around each (cool1d_multi with its
+dust-temperature solve, lookup_cool_rates, the H2-equilibrium limit, the
+network kernel), and
 profiles the same STEPS subcycles with torch.profiler for device busy
 time and the costliest device kernels.  Run from the repository root:
 
@@ -71,7 +72,7 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
-            clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+            clock.setdefault(name, []).append(time.perf_counter() - t0)
             return out
 
         cool = timed("cool1d_multi", lambda: cooling.cool1d_multi(
@@ -126,8 +127,9 @@ def main() -> int:
         "precision": opt.precision, "cells": opt.cells,
         "steps": opt.steps, "after_subcycles": opt.warm,
         "active_cells": int(start["itmask"].sum()),
-        "staged_ms_per_subcycle": {k: 1e3 * v / opt.steps
+        "staged_ms_per_subcycle": {k: 1e3 * sum(v) / opt.steps
                                    for k, v in clock.items()},
+        "staged_max_ms": {k: 1e3 * max(v) for k, v in clock.items()},
         "staged_total_ms_per_subcycle": 1e3 * staged / opt.steps,
         "profiled_wall_ms_per_subcycle": 1e3 * wall / opt.steps,
         "profiled_device_entries": len(events),

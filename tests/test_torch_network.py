@@ -25,6 +25,7 @@ from grackle_tpu.ops import cooling as jcooling
 from grackle_tpu.ops import dust_temp as jdust
 from grackle_tpu.ops import lookup as jlookup
 from grackle_tpu.ops import network as jnetwork
+from grackle_tpu_torch.config import default_config
 from grackle_tpu_torch.convert import context_from_numpy
 from grackle_tpu_torch.ops import chemistry_step as pcs
 from grackle_tpu_torch.ops import cooling as pcooling
@@ -372,8 +373,65 @@ def test_kernel_layout_matches_source():
         nk.OUT_FIELD_SLOTS
     assert [s[2:] for s in outs[len(nk.OUT_FIELD_SLOTS):-1]] == \
         nk.OUT_CARRY_SLOTS
-    # the argument struct stays under the 4 KB kernel parameter limit
+    # NetworkArgs field for field; it stays under the 4 KB kernel
+    # parameter limit
+    body = re.search(r"struct NetworkArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "double": ctypes.c_double, "const void*": ctypes.c_void_p,
+             "void*": ctypes.c_void_p}
+    dims = {"N_IN": nk.N_IN, "N_OUT": nk.N_OUT}
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind, names = re.match(r"(const void\*|void\*|long long|int|double)"
+                               r"\s+(.*)", decl).groups()
+        for name in (x.strip() for x in names.split(",")):
+            arr = re.fullmatch(r"(\w+)\[(\w+)\]", name)
+            fields.append((arr.group(1), (ctype[kind], dims[arr.group(2)]))
+                          if arr else (name, ctype[kind]))
+
+    def sig(t):
+        return (t._type_, t._length_) if hasattr(t, "_length_") else t
+
+    assert fields == [("in" if name == "inp" else name, sig(t))
+                      for name, t in nk._NetworkArgs._fields_]
     assert ctypes.sizeof(nk._NetworkArgs) < 4096
+    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) \
+        == nk.TILE and nk.TILE % 32 == 0
     assert "-fmad=false" in nk.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in nk.NVCC_FLAGS
     assert not any("fast_math" in f for f in nk.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("precision", [64, 32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_input_slots(case, precision):
+    """The operand slots a configuration's launch reads, the only ones
+    passed to the kernel, and their bytes a cell."""
+    nk = network_kernel
+    cfg = default_config(**CASES[case])
+    isp = cfg.primordial_chemistry
+    dtype = torch.float64 if precision == 64 else torch.float32
+    slots = nk.input_slots(cfg)
+    names = [nk.IN_SLOTS[j] for j in slots]
+    assert slots == sorted(set(slots))
+    rt = 0 if not cfg.use_radiative_transfer or isp == 0 else (
+        1 if cfg.radiative_transfer_hydrogen_only else 3)
+    anydust = cfg.h2_on_dust > 0 or cfg.dust_chemistry > 0
+    comp = cfg.compensated_sums == 1
+    assert sum(x in nk.SPECIES_SLOTS for x in names) == (0, 6, 9, 12)[isp]
+    assert sum(x in nk.RT_SLOTS for x in names) == rt
+    assert ("k1" in names, "k7" in names, "k50" in names) == (
+        isp > 0, isp > 1, isp > 2)
+    assert ("h2dust" in names) == (anydust and isp > 1)
+    assert ("h2_limit" in names) == (isp > 1)
+    assert ("energy_lo" in names, "ttot_lo" in names) == (comp, comp)
+    k = (0, 8, 25, 32)[isp] + (0, 3, 7, 7)[isp]
+    assert len(slots) == (2 + (0, 6, 9, 12)[isp] + rt + k
+                          + (anydust and isp > 1) + 6 + 9 + 2 * comp
+                          + (isp > 1))
+    flags = {nk.slot_dtype(j, dtype) for j in slots} - {dtype}
+    assert flags == {torch.bool, torch.int32}
+    cell_bytes = sum(nk.slot_dtype(j, dtype).itemsize for j in slots)
+    if case == "chem3_dust_metal":  # the flagship: 67 floats and 3 flags
+        assert (len(slots), cell_bytes) == (70, (542, 274)[precision == 32])
