@@ -30,19 +30,32 @@ one.  Phases:
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
-   against tests/answers/*.npz at rtol 1e-6;
+   against tests/answers/*.npz at rtol 1e-6; then the functional_jit
+   example (setup_fluid_container and the functional closures, one step
+   of FUNCTIONAL_JIT_SUBCYCLES subcycles) and the old-style rank-4
+   cooling time, each against the port's CPU run at rtol 1e-6;
 4. flagship at the default solver_compaction (the compacted path): wall
    seconds after one warm-up, cells/s, outer trips, subcycles, converged
    share, peak CUDA memory, and kernel launches (must equal the
    subcycles run over every warm tile and trip), at precision 64 and 32;
 4b. one monolithic f64 flagship solve: its fields and per-cell subcycle
    counts must be bit-identical to phase 4's compacted f64 solve;
+4c. exact-integration tabulated cooling at 1,048,576 cells, f64 and f32:
+   wall seconds, cells/s, peak memory and no kernel launch, against the
+   subcycled tabulated solve and on its first 4,096 cells against the CPU;
+4d. functional.make_solve_fn on the f64 flagship, bit-identical to phase
+   4's solve, one kernel launch a subcycle;
+4e. old-style rank-5 Cloudy metal cooling with primordial_chemistry 1 at
+   1,048,576 cells, f64: wall seconds, launches, converged share, and its
+   first 4,096 cells against the CPU at rtol 1e-6;
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
-   launch of the process, and with it phases 3 to 4b.
+   launch of the process, and with it phases 3 to 4e.
 
-Each phase prints one line.  Then one JSON line lists the kernels, and the
+Each phase prints one line.  Then one JSON line lists the kernels (the
+kernel's launches are the sum over the runs of phases 4 f64, 4d and 4e,
+each counted from 0 just before it), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -85,6 +98,28 @@ PEAK_OPS_PER_S = {8: 17.0e12, 4: 33.5e12}
 #: float output must be bit-identical, in f32 and f64
 KERNEL_RTOL = 0.0
 ANSWER_RTOL = 1.0e-6
+#: phase 4c: the dt of tests/test_exact_cooling.py's exact-vs-subcycled
+#: check, where the subcycled solve takes a handful of accurate steps, and
+#: its bounds on the relative energy difference (test_exact_cooling.py:
+#: 137-141), set on 256 cells.  The median bound holds over every cell.
+#: Over a million cells the max is set by the subcycled solve's own step
+#: error in the densest cells near 3e4 K, which cool by a fifth within
+#: dt: the EXACT_TAIL cells furthest apart are solved again on the CPU in
+#: EXACT_REFINE_STEPS substeps, and there the exact step must be within
+#: the max bound of that refined solve (the subcycled one is further off).
+DT_EXACT = 3.0e-5
+EXACT_VS_SUBCYCLED = {"max": 2.0e-2, "median": 5.0e-3}
+EXACT_TAIL = 64
+EXACT_REFINE_STEPS = 300
+#: cells of each card solve that phases 4c and 4e run again on the CPU
+N_CPU_CHECK = 4096
+#: the exact step on the card against the CPU, by element size.  In f64
+#: the two builds' log, exp, pow and prefix sums differ by ulps, which
+#: the closed form carries through.  In f32 the step's Y(e0) - dt cancels
+#: about three of the seven digits in those dense cells, so two f32
+#: builds differ as much as the f32 step differs from the f64 one; phase
+#: 4c holds that difference to the same bound
+EXACT_CPU_RTOL = {8: 1.0e-9, 4: 1.0e-2}
 
 
 def _units(cd):
@@ -340,6 +375,134 @@ def answer_12species_dust(device):
     return out
 
 
+#: examples/functional_jit.py's step (Myr).  Its stored answer
+#: (tests/answers/examples/functional_jit.npz, 8 steps) runs every cell
+#: into the 10,000-subcycle cap near the CMB temperature, where the JAX
+#: package's own answer moves by 29% when its input energy moves by 1e-15
+#: (scripts/functional_jit_sensitivity.py).  No other build reproduces it
+#: at rtol 1e-6, so the port is held to the JAX closures, and on the card
+#: to its CPU run, over the first FUNCTIONAL_JIT_SUBCYCLES subcycles of
+#: one step, where both trajectories still agree to f64 rounding.
+FUNCTIONAL_JIT_DT = 1.0
+FUNCTIONAL_JIT_SUBCYCLES = 300
+
+
+def functional_jit_chem(module, max_iterations=None):
+    """examples/functional_jit.py's chemistry_data, not yet initialized:
+    6 species with metal cooling in Mpc/Myr units.  ``module`` is the
+    package that provides ``chemistry_data`` (the port here; the tests
+    pass the JAX package too)."""
+    from grackle_tpu_torch.utilities.physical_constants import (
+        cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
+
+    my_chemistry = module.chemistry_data()
+    my_chemistry.use_grackle = 1
+    my_chemistry.with_radiative_cooling = 1
+    my_chemistry.primordial_chemistry = 1
+    my_chemistry.metal_cooling = 1
+    my_chemistry.UVbackground = 0
+    my_chemistry.density_units = mass_hydrogen_cgs
+    my_chemistry.length_units = cm_per_mpc
+    my_chemistry.time_units = sec_per_Myr
+    if max_iterations is not None:
+        my_chemistry.max_iterations = max_iterations
+    my_chemistry.set_velocity_units()
+    return my_chemistry
+
+
+def functional_jit_answer(device, steps=1,
+                          max_iterations=FUNCTIONAL_JIT_SUBCYCLES):
+    """examples/functional_jit.py on the port: 64 cells of constant
+    density from setup_fluid_container, evolved ``steps`` steps by a
+    Python loop over functional.make_solve_fn, with the temperature
+    closure after each step (the example's lax.scan body), each step
+    capped at ``max_iterations`` subcycles (None: the default 10,000)."""
+    import torch
+
+    import grackle_tpu_torch
+    import grackle_tpu_torch.functional as gfn
+    from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+
+    my_chemistry = functional_jit_chem(grackle_tpu_torch, max_iterations)
+    fc = grackle_tpu_torch.setup_fluid_container(
+        my_chemistry, density=0.1, temperature=np.logspace(4.5, 6.5, 64),
+        converge=False, device=device, cloudy_data=synthetic_cloudy_groups())
+    f = {k: np.array(v) for k, v in fc.items()
+         if k in fc.density_fields or k == "energy"}
+    solve = gfn.make_solve_fn(my_chemistry)
+    temperature = gfn.make_temperature_fn(my_chemistry)
+    temps, energies = [], []
+    for _ in range(steps):
+        f, _ = solve(f, FUNCTIONAL_JIT_DT)
+        temps.append(temperature(f))
+        energies.append(f["energy"])
+    return {"temperature": torch.stack(temps).cpu().numpy(),
+            "energy": torch.stack(energies).cpu().numpy(),
+            "final_energy": f["energy"].cpu().numpy()}
+
+
+def refined_tabulated_energy(fields, dt, steps=EXACT_REFINE_STEPS):
+    """The energy after dt of the subcycled tabulated solve (metal
+    cooling, f64, on the CPU) taken in ``steps`` equal substeps: an
+    accurate reference for the exact step."""
+    cd = answer_chem("cpu", primordial_chemistry=0, metal_cooling=1)
+    f = {k: _numpy(v) for k, v in fields.items()}
+    for _ in range(steps):
+        f["energy"] = cd.solve_chemistry(f, dt / steps)[0]["energy"].numpy()
+    return f["energy"]
+
+
+def old_style_chem(device, rank):
+    """tests/test_old_style_tables.py's chemistry: 6 species with metal
+    cooling from a legacy rank-4 or rank-5 Cloudy table, built in memory
+    (data/synthetic.synthetic_old_style_groups)."""
+    from grackle_tpu_torch.api import ChemistryData
+    from grackle_tpu_torch.data.synthetic import synthetic_old_style_groups
+
+    cd = ChemistryData()
+    cd.use_grackle = 1
+    cd.with_radiative_cooling = 1
+    cd.primordial_chemistry = 1
+    cd.metal_cooling = 1
+    _units(cd)
+    cd.initialize(device=device,
+                  cloudy_data=synthetic_old_style_groups(rank))
+    return cd
+
+
+def old_style_state(cd, zfrac, n=12):
+    """tests/test_old_style_tables.py's state: density 10, half-ionized
+    hydrogen, metal fraction ``zfrac``, T from 10^4.3 to 10^6 K."""
+    from grackle_tpu_torch.fluid_container import FluidContainer
+
+    fc = FluidContainer(cd, n)
+    fc["density"][:] = 10.0
+    fc["HII"][:] = 0.5 * 0.76 * fc["density"]
+    fc["HI"][:] = 0.5 * 0.76 * fc["density"]
+    fc["HeI"][:] = 0.24 * fc["density"]
+    fc["HeII"][:] = 1e-20
+    fc["HeIII"][:] = 1e-20
+    fc["de"][:] = fc["HII"]
+    fc["metal"][:] = zfrac * fc["density"]
+    fc.calculate_mean_molecular_weight()
+    fc["energy"] = (np.logspace(4.3, 6, n) / cd.temperature_units
+                    / fc["mu"] / (cd.Gamma - 1.0))
+    return fc._solver_fields()
+
+
+def tabulated_state(cd, n, metal=True, seed=9):
+    """tests/test_exact_cooling._tab_setup's state: tabulated mode, with
+    metal unless ``metal`` is false, density 0.1 to 100, T from 10^4.5 to
+    10^7.5 K at mu 0.6."""
+    rng = np.random.RandomState(seed)
+    f = {"density": 10.0 ** rng.uniform(-1, 2, n)}
+    if metal:
+        f["metal"] = 1.0e-3 * f["density"]
+    T = 10.0 ** rng.uniform(4.5, 7.5, n)
+    f["energy"] = T / cd.temperature_units / 0.6 / (cd.Gamma - 1.0)
+    return f
+
+
 #: tests/answer_workloads.WORKLOADS on the port (rate_tables aside: its
 #: stored SVD factors are the JAX package's, ROADMAP queue 3): name ->
 #: function of the device returning every key of tests/answers/<name>.npz
@@ -352,6 +515,17 @@ ANSWERS = {
 }
 
 
+def _numpy(x):
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def max_rel(got, want):
+    """The largest relative difference of ``got`` from ``want`` (arrays
+    or tensors on any device)."""
+    got, want = _numpy(got), _numpy(want)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
 def answer_errors(name, out):
     """Per-key max relative error of one workload's outputs against its
     stored answer; raises unless the keys are the stored ones and every
@@ -362,12 +536,10 @@ def answer_errors(name, out):
                              f"{sorted(stored.files)}")
     errors = {}
     for key in stored.files:
-        got = out[key]
-        got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
-        want = stored[key]
+        got, want = _numpy(out[key]), stored[key]
         if got.shape != want.shape or not np.all(np.isfinite(got)):
             raise AssertionError(f"{name}/{key}: bad output")
-        errors[key] = float(np.max(np.abs(got - want) / np.abs(want)))
+        errors[key] = max_rel(got, want)
     return errors
 
 
@@ -549,6 +721,9 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
+        #: kernel launches of each main-path run, counted from 0 just
+        #: before it: the kernel line's launches are their sum
+        self.path_launches = {}
 
     def phase(self, label, fn):
         t0 = time.time()
@@ -702,6 +877,12 @@ class Smoke:
         return "; ".join(parts)
 
     def answers(self):
+        """The stored answers; then the functional_jit example and the
+        old-style rank-4 cooling time, each against the port's CPU run
+        (FUNCTIONAL_JIT_SUBCYCLES says why not against the stored
+        example answer)."""
+        import torch
+
         parts = []
         for name, workload in ANSWERS.items():
             errors = answer_errors(name, workload("cuda"))
@@ -709,6 +890,31 @@ class Smoke:
             parts.append(f"{name} {'/'.join(errors)} max rel {worst:.3e}")
             if worst > ANSWER_RTOL:
                 raise AssertionError("; ".join(parts))
+
+        t0 = time.time()
+        card = functional_jit_answer("cuda")
+        wall = time.time() - t0
+        cpu = functional_jit_answer("cpu")
+        worst = max(max_rel(card[k], cpu[k]) for k in cpu)
+        parts.append(f"functional_jit (one step, {FUNCTIONAL_JIT_SUBCYCLES}"
+                     f" subcycles, {wall:.2f} s) vs CPU max rel "
+                     f"{worst:.3e}")
+        if worst > ANSWER_RTOL or not all(np.all(np.isfinite(v))
+                                          for v in card.values()):
+            raise AssertionError("; ".join(parts))
+
+        worst = 0.0
+        chems = [old_style_chem(device, 4) for device in ("cuda", "cpu")]
+        for zfrac in (1e-6, 0.04):
+            state = old_style_state(chems[1], zfrac)
+            card, cpu = (cd.calculate_cooling_time(state) for cd in chems)
+            if not bool(torch.isfinite(card).all()):
+                raise AssertionError("old-style cooling_time not finite")
+            worst = max(worst, max_rel(card, cpu))
+        parts.append(f"old-style rank-4 cooling_time vs CPU max rel "
+                     f"{worst:.3e}")
+        if worst > ANSWER_RTOL:
+            raise AssertionError("; ".join(parts))
         return "; ".join(parts)
 
     def flagship(self, precision):
@@ -754,7 +960,7 @@ class Smoke:
         if diag["trips"] == 0:
             raise AssertionError(f"f{precision}: no outer trip ran")
         if precision == 64:
-            self.kernel["launches"] = launches
+            self.path_launches["compacted"] = launches
             self.compact64 = (new_f, diag, wall)
         msg = (f"f{precision} compacted, {N_FLAGSHIP} cells dt "
                f"{DT_FLAGSHIP}: {wall:.3f} s, {N_FLAGSHIP / wall:.0f} "
@@ -829,6 +1035,184 @@ class Smoke:
                 f"{comp_d['trips']} trips): {len(new_f)} fields and "
                 f"cell_iterations bit-identical")
 
+    def exact(self, precision):
+        """Exact-integration tabulated cooling (exact_cooling = 1, metal
+        cooling) on N_FLAGSHIP cells at DT_EXACT: wall seconds after one
+        warm-up, cells/s and peak CUDA memory, with no kernel launch; the
+        subcycled tabulated solve of the same state beside it (median
+        within EXACT_VS_SUBCYCLED, its furthest cells against the refined
+        solve); the first N_CPU_CHECK cells against the port's CPU run
+        within EXACT_CPU_RTOL."""
+        import torch
+
+        from grackle_tpu_torch.api import solve_path
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        def chem(device, exact):
+            return answer_chem(device, precision=precision,
+                               primordial_chemistry=0, metal_cooling=1,
+                               exact_cooling=exact)
+
+        cd = chem("cuda", 1)
+        if solve_path(cd.config, N_FLAGSHIP) != "exact":
+            raise AssertionError("exact_cooling = 1 does not take 'exact'")
+        fields = tabulated_state(cd, N_FLAGSHIP)
+        cd.solve_chemistry(fields, DT_EXACT)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = cd.solve_chemistry(fields, DT_EXACT)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        energy = new_f["energy"]
+        if (network_update_cuda.launches or diag["subcycles"]
+                or energy.shape != (N_FLAGSHIP,)
+                or not bool(torch.isfinite(energy).all())):
+            raise AssertionError(f"f{precision} exact: bad output or a "
+                                 f"kernel launch")
+
+        sub = chem("cuda", 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sub_f, sub_d = sub.solve_chemistry(fields, DT_EXACT)
+        torch.cuda.synchronize()
+        sub_wall = time.time() - t0
+        if not bool(sub_d["converged"].all()):
+            raise AssertionError("subcycled: a cell hit max_iterations")
+        rel = ((energy - sub_f["energy"]).abs()
+               / sub_f["energy"].abs()).double()
+        median = float(rel.median())
+        over = int((rel >= EXACT_VS_SUBCYCLED["max"]).sum())
+        if getattr(self, "exact_tail", None) is None:
+            # the f64 run's furthest cells, and their refined energy, serve
+            # the f32 run too: the refined solve is the slow part
+            tail = torch.topk(rel, EXACT_TAIL).indices.cpu()
+            self.exact_tail = tail, refined_tabulated_energy(
+                {k: v[tail.numpy()] for k, v in fields.items()}, DT_EXACT)
+        tail, ref = self.exact_tail
+        tail_exact = max_rel(energy[tail].double(), ref)
+        tail_sub = max_rel(sub_f["energy"][tail].double(), ref)
+        bound = EXACT_CPU_RTOL[energy.element_size()]
+        if precision == 64:
+            self.exact64 = energy
+            vs64 = 0.0
+        elif getattr(self, "exact64", None) is None:
+            raise AssertionError("phase 4c f64 did not complete")
+        else:
+            vs64 = max_rel(energy.double(), self.exact64)
+
+        head = {k: v[:N_CPU_CHECK] for k, v in fields.items()}
+        cpu = chem("cpu", 1).solve_chemistry(head, DT_EXACT)[0]["energy"]
+        cpu_err = max_rel(energy[:N_CPU_CHECK], cpu)
+        msg = (f"f{precision} exact, {N_FLAGSHIP} cells dt {DT_EXACT}: "
+               f"{wall:.3f} s, {N_FLAGSHIP / wall:.0f} cells/s, peak "
+               f"{peak:.2f} GiB, 0 kernel launches; subcycled {sub_wall:.3f}"
+               f" s ({sub_d['subcycles']} subcycles, {sub_d['trips']} "
+               f"trips); exact vs subcycled rel median {median:.2e} "
+               f"(bound {EXACT_VS_SUBCYCLED['median']:.0e}), max "
+               f"{float(rel.max()):.2e}, {over} cells over "
+               f"{EXACT_VS_SUBCYCLED['max']:.0e}; its "
+               f"{EXACT_TAIL} furthest cells vs {EXACT_REFINE_STEPS} "
+               f"substeps: exact {tail_exact:.2e} (bound "
+               f"{EXACT_VS_SUBCYCLED['max']:.0e}), subcycled "
+               f"{tail_sub:.2e}; first {N_CPU_CHECK} cells vs CPU max rel "
+               f"{cpu_err:.2e}" + (f", every cell vs the f64 step max rel "
+                                   f"{vs64:.2e}" if precision == 32 else "")
+               + f" (bound {bound:.0e})")
+        if (median >= EXACT_VS_SUBCYCLED["median"]
+                or tail_exact >= EXACT_VS_SUBCYCLED["max"]
+                or cpu_err > bound or vs64 > bound):
+            raise AssertionError(msg)
+        self.path_launches["exact"] = 0
+        return msg
+
+    def functional_flagship(self):
+        """functional.make_solve_fn on the f64 flagship: its fields and
+        per-cell subcycle counts must equal phase 4's compacted f64 solve
+        bit for bit, with one kernel launch a subcycle."""
+        import torch
+
+        import grackle_tpu_torch.functional as gfn
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        if getattr(self, "compact64", None) is None:
+            raise AssertionError("phase 4 f64 did not complete")
+        comp_f, comp_d, comp_wall = self.compact64
+        cd = flagship_chem(64, "cuda")
+        solve = gfn.make_solve_fn(cd)
+        fields = flagship_fields(cd, N_FLAGSHIP)
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = solve(fields, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        if launches != diag["subcycles"] or launches == 0:
+            raise AssertionError(f"functional: {launches} launches for "
+                                 f"{diag['subcycles']} subcycles")
+        differ = [k for k in comp_f if not torch.equal(new_f[k], comp_f[k])]
+        if not torch.equal(diag["cell_iterations"],
+                           comp_d["cell_iterations"]):
+            differ.append("cell_iterations")
+        if sorted(new_f) != sorted(comp_f) or differ:
+            raise AssertionError(f"make_solve_fn vs compacted differ in "
+                                 f"{differ or 'keys'}")
+        self.path_launches["functional"] = launches
+        return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
+                f"cells/s, no warm-up; {launches} launches, "
+                f"{diag['trips']} trips) against the stateful compacted "
+                f"{comp_wall:.3f} s: {len(new_f)} fields and "
+                f"cell_iterations bit-identical")
+
+    def old_style(self):
+        """Old-style rank-5 Cloudy metal cooling with primordial_chemistry
+        = 1 on N_FLAGSHIP cells of the answer-workload state, f64, at
+        DT_FLAGSHIP (the default compacted path, one call): wall seconds,
+        kernel launches (must equal the subcycles) and converged share;
+        the first N_CPU_CHECK cells against the port's CPU solve at rtol
+        ANSWER_RTOL."""
+        import torch
+
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        cd = old_style_chem("cuda", 5)
+        if cd.context.cloudy_data_new or cd.context.cloudy_metal.grid_rank \
+                != 5:
+            raise AssertionError("the rank-5 old-style table was not read")
+        fields = answer_state(cd, n=N_FLAGSHIP)
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        for key, val in new_f.items():
+            if val.shape != (N_FLAGSHIP,) or not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"old-style {key}: bad output")
+        if launches != diag["subcycles"] or launches == 0:
+            raise AssertionError(f"old-style: {launches} launches for "
+                                 f"{diag['subcycles']} subcycles")
+        head = {k: v[:N_CPU_CHECK] for k, v in fields.items()}
+        cpu_f, _ = old_style_chem("cpu", 5).solve_chemistry(head,
+                                                             DT_FLAGSHIP)
+        worst = max(max_rel(new_f[k][:N_CPU_CHECK], cpu_f[k])
+                    for k in cpu_f)
+        conv = float(diag["converged"].float().mean())
+        msg = (f"f64 old-style rank 5, chemistry 1, {N_FLAGSHIP} cells dt "
+               f"{DT_FLAGSHIP}: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
+               f"cells/s, one call), {launches} launches, {diag['trips']} "
+               f"trips, converged {conv:.6f}; first {N_CPU_CHECK} cells vs "
+               f"CPU max rel {worst:.2e}")
+        if worst > ANSWER_RTOL:
+            raise AssertionError(msg)
+        self.path_launches["old_style"] = launches
+        return msg
+
 
 def main() -> int:
     sys.path.insert(0, REPO)
@@ -861,8 +1245,15 @@ def main() -> int:
     smoke.phase("4 flagship f64", lambda: smoke.flagship(64))
     smoke.phase("4 flagship f32", lambda: smoke.flagship(32))
     smoke.phase("4b monolithic f64 vs compacted", smoke.monolithic)
+    smoke.phase("4c exact cooling f64", lambda: smoke.exact(64))
+    smoke.phase("4c exact cooling f32", lambda: smoke.exact(32))
+    smoke.phase("4d functional make_solve_fn f64",
+                smoke.functional_flagship)
+    smoke.phase("4e old-style rank 5, chemistry 1", smoke.old_style)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
+    smoke.kernel["launches"] = sum(smoke.path_launches.values())
+    print(f"[launches] {smoke.path_launches}", flush=True)
     print(json.dumps({"kernels": [smoke.kernel]}), flush=True)
     if not smoke.ok:
         return 1

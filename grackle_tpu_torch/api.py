@@ -22,9 +22,9 @@ src/python/pygrackle/grackle_wrapper.pyx:22-1051):
 ``solve_path`` names the same three paths as the JAX package: 'compact'
 (converged-cell compaction, used when ``solver_compaction > 0`` and
 n >= 32768), 'monolithic', and 'exact' (exact-integration tabulated
-cooling), which raises NotImplementedError until its slice lands (ROADMAP
-queue 1).  ``use_fused_lookup`` is accepted and has no effect: the port
-always gathers.
+cooling, ops/exact_cool.py: one closed-form pass, no subcycles and no
+kernel launch).  ``use_fused_lookup`` is accepted and has no effect: the
+port always gathers.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .data.cloudy import (CloudyTable, empty_cloudy_table, is_old_style,
                           load_cloudy_table)
 from .data.uvb import load_uvb_table, update_uvb_rates, uvb_redshift_bounds
 from .ops import derived as _derived
+from .ops import exact_cool as _exact
 from .ops import solver as _solver
 from .ops.common import (make_unit_scalars, photo_rates_from_tables,
                          solver_dtype)
@@ -62,13 +63,6 @@ class GrackleContext:
     uvb: Any = None  # data/uvb.UVBTable on the host, or None
     cloudy_data_new: bool = True
     device: Any = "cuda"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to grackle_tpu_torch yet (ROADMAP queue 1: "
-        f"{item})"
-    )
 
 
 def resolve_device(device) -> torch.device:
@@ -133,6 +127,18 @@ def initialize(cfg: "ChemistryConfig", units: CodeUnits, device="cuda",
         if updates:
             cfg = dataclasses.replace(cfg, **updates)
     tables = build_rate_tables(cfg, units, device=device, dtype=dtype)
+
+    from . import info as _info
+    if _info.grackle_verbose:
+        from .version import get_grackle_version
+
+        v = get_grackle_version()
+        print(f"grackle_tpu_torch {v.version} ({v.branch}@"
+              f"{v.revision[:12]})")
+        print("Initializing grackle_tpu_torch data.")
+        _info.show_parameters(cfg)
+        _info.write_info_file(cfg, units)
+
     return GrackleContext(
         config=cfg, units=units, tables=tables,
         cloudy_primordial=cloudy_prim, cloudy_metal=cloudy_met, uvb=uvb,
@@ -215,17 +221,11 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     """
     cfg = ctx.config
     f, imetal = _prep_fields(ctx, fields)
-    n = f["density"].shape[0] if f["density"].ndim == 1 else 0
-    path = solve_path(cfg, n)
-    if path == "exact":
-        raise _not_ported("the 'exact' solve path (exact_cooling = 1)",
-                          "exact cooling")
     us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
     l_h2 = None
     if cfg.H2_self_shielding == 1:
         if l_h2shield is not None:
-            l_h2 = torch.as_tensor(l_h2shield).to(
-                device=ctx.device, dtype=solver_dtype(cfg)).reshape(-1)
+            l_h2 = shield_length_tensor(ctx, l_h2shield)
         elif grid_shape is None or len(grid_shape) != 3:
             raise ValueError(
                 "H2_self_shielding option 1 requires a 3-D grid_shape "
@@ -239,10 +239,41 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     # unit scalars and UVB photo rates are per-call host work, as the
     # reference computes them in C per call
     pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    new_f, diagnostics = solve_prepared(ctx, us, pr, f, float(dt), imetal,
+                                        l_h2)
+    if cfg.exit_after_iterations_exceeded:
+        # analogue of the reference's hard failure when the subcycle cap
+        # is hit (solve_rate_cool_g.F:823-843 honoring exititmax)
+        if not bool(diagnostics["converged"].all()):
+            raise RuntimeError(
+                f"solve_chemistry: iteration count exceeded "
+                f"max_iterations = {cfg.max_iterations} before all cells "
+                f"reached dt."
+            )
+    return new_f, diagnostics
+
+
+def shield_length_tensor(ctx: GrackleContext, l_h2shield):
+    """A per-cell shielding length (cgs) as a flat solver-dtype tensor on
+    the context's device."""
+    return torch.as_tensor(l_h2shield).to(
+        device=ctx.device, dtype=solver_dtype(ctx.config)).reshape(-1)
+
+
+def solve_prepared(ctx: GrackleContext, us, pr, f, dt: float,
+                   imetal: bool, l_h2shield=None):
+    """The solve on prepared tensors ``f`` with this call's unit scalars
+    and photo rates, on the path :func:`solve_path` picks: the body
+    shared by :func:`solve_chemistry` and functional.make_solve_fn."""
+    cfg = ctx.config
+    n = f["density"].shape[0] if f["density"].ndim == 1 else 0
+    path = solve_path(cfg, n)
+    if path == "exact":
+        return solve_exact(ctx, us, pr, f, dt, imetal)
     args = (cfg, ctx.tables, ctx.cloudy_primordial, ctx.cloudy_metal, pr,
-            us, f, float(dt))
+            us, f, dt)
     kw = dict(imetal=imetal, cloudy_data_new=ctx.cloudy_data_new,
-              l_h2shield_field=l_h2,
+              l_h2shield_field=l_h2shield,
               comoving=bool(ctx.units.comoving_coordinates))
     if path == "compact":
         # solver_compaction is the warm phase's subcycle count
@@ -251,21 +282,36 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
             batch=_compact_batch(n))
     else:
         result = _solver.solve_rate_cool(*args, **kw)
-    diagnostics = {"n_iterations": result.n_iterations,
-                   "converged": result.converged,
-                   "cell_iterations": result.cell_iterations,
-                   "subcycles": result.subcycles,
-                   "trips": result.trips}
-    if cfg.exit_after_iterations_exceeded:
-        # analogue of the reference's hard failure when the subcycle cap
-        # is hit (solve_rate_cool_g.F:823-843 honoring exititmax)
-        if not bool(result.converged.all()):
-            raise RuntimeError(
-                f"solve_chemistry: iteration count exceeded "
-                f"max_iterations = {cfg.max_iterations} before all cells "
-                f"reached dt."
-            )
-    return result.fields, diagnostics
+    return result.fields, {"n_iterations": result.n_iterations,
+                           "converged": result.converged,
+                           "cell_iterations": result.cell_iterations,
+                           "subcycles": result.subcycles,
+                           "trips": result.trips}
+
+
+def solve_exact(ctx: GrackleContext, us, pr, f, dt: float, imetal: bool):
+    """The 'exact' path: exact-integration tabulated cooling
+    (ops/exact_cool.py), one closed-form pass instead of the subcycle
+    loop.  ``f`` holds prepared tensors; only the energy is replaced.
+    Diagnostics as the JAX package gives them, plus zero subcycles and
+    trips: no network launch runs."""
+    cfg = ctx.config
+    fe = f
+    if ctx.units.comoving_coordinates:
+        fe = _solver.scale_fields(cfg, f, us.aye**-3, imetal)
+    out = dict(f)
+    out["energy"] = _exact.exact_cool_step(
+        cfg, ctx.cloudy_primordial, ctx.cloudy_metal, pr, us, fe, dt,
+        imetal)
+    n = f["density"].shape[0]
+    device = f["density"].device
+    return out, {
+        "n_iterations": torch.ones((), dtype=torch.int32, device=device),
+        "converged": torch.ones(n, dtype=torch.bool, device=device),
+        "cell_iterations": torch.ones(n, dtype=torch.int32, device=device),
+        "subcycles": 0,
+        "trips": 0,
+    }
 
 
 def _host(val):
@@ -456,6 +502,11 @@ class ChemistryData:
     @property
     def cooling_units(self):
         return self.code_units.coolunit
+
+    def set_velocity_units(self):
+        """No-op for API parity: velocity units are always derived from
+        length/time/a (grackle_units.c:24-36)."""
+        return self.velocity_units
 
     # --- lifecycle ---
 

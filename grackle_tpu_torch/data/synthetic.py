@@ -148,3 +148,42 @@ def synthetic_cloudy_groups(
         "Metals": _group(m_cool, m_heat, None, log_nh, zgrid, log_T),
         "UVBRates": _uvb_group(z_max),
     }
+
+
+def synthetic_old_style_groups(rank=4):
+    """The content of grackle_tpu's ``make_synthetic_old_style_file`` (same
+    arrays): a legacy ('old_style') metal-cooling source with a rank-4
+    (n_H, logZ, e_frac, T) or rank-5 (+z) Metals table
+    (grackle: src/clib/cool1d_cloudy_old_tables_g.F,
+    initialize_cloudy_data.c:92-96), carrying the file's top-level
+    ``"old_style"`` attribute as a key."""
+    log_nh = np.linspace(-6.0, 4.0, 11)
+    log_z = np.linspace(-4.0, 0.5, 7)
+    e_frac = np.linspace(-6.0, 0.0, 5)  # log10 electron fraction
+    zgrid = np.linspace(0.0, 8.0, 5)
+    log_T = np.linspace(1.0, 9.0, 81)
+    T = 10.0**log_T
+
+    # amplitude exaggerated so tests see a clear metallicity response
+    lam = 2.0e-21 * np.exp(-0.5 * ((np.log10(T) - 5.3) / 0.8) ** 2) \
+        + 1.0e-24
+    # old-style tables carry metallicity as a table axis (no external
+    # scaling), so the synthetic cooling grows with log_Z
+    if rank not in (4, 5):
+        raise ValueError("synthetic old-style tables are rank 4 or 5")
+    zscale = 10.0 ** log_z
+    pars = [log_nh, log_z, e_frac] + ([zgrid] if rank == 5 else [])
+    dims = tuple(len(p) for p in pars) + (len(log_T),)
+    zscale = zscale.reshape((1, -1) + (1,) * (rank - 2))  # along axis 1
+    cool = (lam * zscale + 1.0e-27) * np.ones(dims)
+    heat = np.broadcast_to(1e-27 * np.exp(-T / 3e4) + 1e-32, dims).copy()
+    group = {
+        "Rank": np.int64(rank),
+        "Dimension": np.array(dims, dtype=np.int64),
+        "Temperature": 10.0 ** np.asarray(log_T, dtype=np.float64),
+        "Cooling": cool,
+        "Heating": heat,
+    }
+    for i, p in enumerate(pars):
+        group[f"Parameter{i + 1}"] = np.asarray(p, dtype=np.float64)
+    return {"old_style": np.int64(1), "Metals": group}

@@ -1,0 +1,177 @@
+"""Functional entry points: closures over an initialized context (port of
+grackle_tpu/functional.py).
+
+The reference is a C library a hydro code calls once per timestep
+(grackle: src/clib/solve_chemistry.c:91-370).  These factories do that
+call's per-call host work once, when the closure is built, and return
+plain functions of the fields:
+
+    import grackle_tpu_torch.functional as gfn
+    solve = gfn.make_solve_fn(chem)          # chem: initialized ChemistryData
+    temperature = gfn.make_temperature_fn(chem)
+
+    for step in range(n_steps):
+        fields, diag = solve(fields, dt)
+
+What is frozen at build time (host-side, like the reference's per-call C
+work, update_UVbackground_rates.c:25-289): the parameter set, the rate
+tables, the unit system, and the redshift-dependent UV-background photo
+rates.  For cosmological runs rebuild the closure when ``a_value``
+changes; for constant-a runs nothing ever needs rebuilding.
+
+What holds, in place of the JAX package's "trace-safe": a call does no
+host work beyond the loops' own checks (the subcycle loop reads "any
+cell active" every 8 subcycles; the dust-temperature Newton solve and
+the tabulated-mode temperature fixed point read their convergence once
+a block of steps; the exact step reads nothing).  Each closure gives,
+for the same context, results
+identical to ``ChemistryData.solve_chemistry`` and ``calculate_*`` bit for
+bit: they run the same functions on the same unit scalars and photo rates.
+The derived-field closures are differentiable with ``torch.autograd``
+with respect to the field tensors passed in (tests/test_torch_functional).
+
+Differences from the stateful API (``ChemistryData.solve_chemistry``), as
+in the JAX package:
+
+- ``exit_after_iterations_exceeded`` does not raise; inspect
+  ``diag["converged"]`` instead.
+- Field arrays must already be flat ``[N]`` (ravel grids yourself; ghost
+  -zone slicing is a host-side concern).
+- H2_self_shielding option 1 (the 3-D density stencil) takes the
+  precomputed per-cell length via the ``l_h2shield`` argument --
+  compute it with ``grackle_tpu_torch.api.sobolev_shield_length`` on the
+  full grid.
+"""
+
+from __future__ import annotations
+
+from .api import (
+    GrackleContext,
+    _photo_rates,
+    _prep_fields,
+    shield_length_tensor,
+    solve_prepared,
+)
+from .ops import derived as _derived
+from .ops.common import make_unit_scalars
+
+__all__ = [
+    "make_solve_fn",
+    "make_cooling_time_fn",
+    "make_temperature_fn",
+    "make_pressure_fn",
+    "make_gamma_fn",
+    "make_dust_temperature_fn",
+]
+
+
+def _resolve_ctx(chem) -> GrackleContext:
+    if isinstance(chem, GrackleContext):
+        return chem
+    ctx = getattr(chem, "context", None)
+    if ctx is None:
+        raise ValueError(
+            "make_*_fn expects an initialized ChemistryData (call "
+            ".initialize() first) or a GrackleContext"
+        )
+    return ctx
+
+
+def make_solve_fn(chem, grid_dx: float = 0.0):
+    """Build ``solve(fields, dt, l_h2shield=None) -> (fields, diag)``.
+
+    Path selection (exact-integration cooling / converged-cell
+    compaction / monolithic subcycling) is the stateful API's
+    (api.solve_path), so results are identical to
+    ``ChemistryData.solve_chemistry`` for the same context.
+    """
+    ctx = _resolve_ctx(chem)
+    cfg = ctx.config
+    us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
+    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+
+    def solve(fields, dt, l_h2shield=None):
+        f, imetal = _prep_fields(ctx, fields)
+        if cfg.H2_self_shielding == 1 and l_h2shield is None:
+            raise ValueError(
+                "H2_self_shielding option 1 requires the precomputed "
+                "per-cell shielding length: solve(fields, dt, "
+                "l_h2shield=...) -- see api.sobolev_shield_length"
+            )
+        l_h2 = (None if l_h2shield is None
+                else shield_length_tensor(ctx, l_h2shield))
+        return solve_prepared(ctx, us, pr, f, float(dt), imetal, l_h2)
+
+    return solve
+
+
+def make_cooling_time_fn(chem):
+    """Build ``cooling_time(fields) -> [N]`` (calculate_cooling_time.c)."""
+    ctx = _resolve_ctx(chem)
+    cfg = ctx.config
+    us = make_unit_scalars(cfg, ctx.tables, ctx.units)
+    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    comoving = bool(ctx.units.comoving_coordinates)
+
+    def cooling_time(fields):
+        f, imetal = _prep_fields(ctx, fields)
+        return _derived.calculate_cooling_time(
+            cfg, ctx.tables, ctx.cloudy_primordial, ctx.cloudy_metal,
+            pr, us, f, imetal=imetal,
+            cloudy_data_new=ctx.cloudy_data_new, comoving=comoving,
+        )
+
+    return cooling_time
+
+
+def make_temperature_fn(chem):
+    """Build ``temperature(fields) -> [N]`` (calculate_temperature.c)."""
+    ctx = _resolve_ctx(chem)
+    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+
+    def temperature(fields):
+        f, imetal = _prep_fields(ctx, fields)
+        return _derived.calculate_temperature(
+            ctx.config, ctx.cloudy_primordial, us, f, imetal)
+
+    return temperature
+
+
+def make_pressure_fn(chem):
+    """Build ``pressure(fields) -> [N]`` (calculate_pressure.c)."""
+    ctx = _resolve_ctx(chem)
+    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+
+    def pressure(fields):
+        f, imetal = _prep_fields(ctx, fields)
+        return _derived.calculate_pressure(ctx.config, us, f, imetal)
+
+    return pressure
+
+
+def make_gamma_fn(chem):
+    """Build ``gamma(fields) -> [N]`` (calculate_gamma.c)."""
+    ctx = _resolve_ctx(chem)
+    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+
+    def gamma(fields):
+        f, imetal = _prep_fields(ctx, fields)
+        return _derived.calculate_gamma(
+            ctx.config, ctx.cloudy_primordial, us, f, imetal)
+
+    return gamma
+
+
+def make_dust_temperature_fn(chem):
+    """Build ``dust_temperature(fields) -> [N]``
+    (calculate_dust_temperature.c)."""
+    ctx = _resolve_ctx(chem)
+    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+
+    def dust_temperature(fields):
+        f, imetal = _prep_fields(ctx, fields)
+        return _derived.calculate_dust_temperature(
+            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f,
+            ctx.units, imetal)
+
+    return dust_temperature

@@ -5,8 +5,6 @@ Batched rebuild of the reference's per-row cooling kernel
 (grackle: src/clib/cool1d_multi_g.F:6-1131) as one function over the flat
 cell axis: species state in, edot/tgas/tdust/mmw out.  Physics switches
 are host-side config flags, so only the enabled processes run.
-
-Old-style Cloudy tables are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -412,16 +410,21 @@ def cool1d_multi(
 
     # --- Cloudy metal cooling (cool1d_multi_g.F:1069-1097) ---
     if cfg.metal_cooling == 1:
-        if not cloudy_data_new:
-            raise NotImplementedError(
-                "old-style Cloudy tables are not ported yet (ROADMAP "
-                "queue 1: remaining modes)"
+        if cloudy_data_new:
+            edot = edot + cloudy_cool.cloudy_cooling(
+                cloudy_met, logtem, rhoH, metallicity, dom, us.zr,
+                us.comp2, icmbTfloor=cfg.cmb_temperature_floor,
+                iClHeat=cfg.UVbackground, iZscale=1,
             )
-        edot = edot + cloudy_cool.cloudy_cooling(
-            cloudy_met, logtem, rhoH, metallicity, dom, us.zr,
-            us.comp2, icmbTfloor=cfg.cmb_temperature_floor,
-            iClHeat=cfg.UVbackground, iZscale=1,
-        )
+        else:
+            de_for_old = f["de"] if ispecies > 0 else myde
+            edot = edot + cloudy_cool.cloudy_cooling_old_tables(
+                cloudy_met, de_for_old, d, logtem, rhoH, metallicity,
+                dom, us.zr, us.comp2,
+                icmbTfloor=cfg.cmb_temperature_floor,
+                iClHeat=cfg.UVbackground,
+                cl_ele_fra=cfg.cloudy_electron_fraction_factor,
+            )
 
     # --- user heating arrays (cool1d_multi_g.F:1101-1120) ---
     if cfg.use_volumetric_heating_rate == 1:

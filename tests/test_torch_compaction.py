@@ -57,11 +57,11 @@ def test_compaction_bit_identical(monkeypatch, name):
     """The public path: solve_chemistry takes 'compact' above the (here
     lowered) threshold, with solver_compaction warm subcycles and the
     n/4 batch, and equals the monolithic solve bit for bit."""
-    monkeypatch.setattr(api, "_COMPACT_MIN_BUCKET", 64)
+    monkeypatch.setattr(api, "_COMPACT_MIN_BUCKET", 32)
     warm, kw = CONFIGS[name]
     cd = port_chem(64, solver_compaction=warm, **kw)
-    f = state(cd, n=256)
-    assert api.solve_path(cd.config, 256) == "compact"
+    f = state(cd, n=128)
+    assert api.solve_path(cd.config, 128) == "compact"
     new_c, diag_c = cd.solve_chemistry(dict(f), 1.0e-4)
     new_m, diag_m = port_chem(64, solver_compaction=0,
                               **kw).solve_chemistry(dict(f), 1.0e-4)

@@ -123,9 +123,9 @@ def test_precision_32_stays_f32():
 
 def test_solve_path_and_unported_paths(monkeypatch):
     """solve_path names the JAX package's three paths; 'compact' runs
-    (with its threshold lowered here), and only 'exact' still raises
-    NotImplementedError naming the ROADMAP item, never running another
-    path.  UVbackground = 1 initializes."""
+    (with its threshold lowered here), and 'exact' runs its closed-form
+    pass, never another path: no subcycle, no trip.  UVbackground = 1
+    initializes."""
     cfg = api.resolve_config(api.ChemistryConfig(primordial_chemistry=3))
     assert cfg.solver_compaction > 0
     assert solve_path(cfg, 1000) == "monolithic"
@@ -138,9 +138,12 @@ def test_solve_path_and_unported_paths(monkeypatch):
     cd = port_chem(64, primordial_chemistry=1)
     _, diag = cd.solve_chemistry(state(cd, n=32), 1.0e-4)
     assert diag["trips"] > 0 and bool(diag["converged"].all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*exact"):
-        port_chem(64, primordial_chemistry=0, exact_cooling=1,
-                  metal_cooling=1).solve_chemistry(state(cd, n=8), 1.0e-4)
+    exact_cd = port_chem(64, primordial_chemistry=0, exact_cooling=1,
+                         metal_cooling=1)
+    f = state(exact_cd, n=8)
+    new_f, diag = exact_cd.solve_chemistry(f, 1.0e-4)
+    assert diag["subcycles"] == 0 and diag["trips"] == 0
+    assert bool((new_f["energy"] <= torch.from_numpy(f["energy"])).all())
     uvb = port_chem(64, primordial_chemistry=3, UVbackground=1)
     assert uvb.context.uvb is not None
     assert uvb.UVbackground_redshift_on == 10.0

@@ -255,11 +255,16 @@ mods = [m.name for m in pkgutil.walk_packages(grackle_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-print(len(mods))
+print(" ".join(mods))
 """
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    mods = set(res.stdout.split())
+    assert len(mods) >= 20
+    new = {"functional", "info", "version", "ops.exact_cool",
+           "utilities.api", "utilities.convenience", "utilities.evolve",
+           "utilities.testing", "utilities.units"}
+    assert {f"grackle_tpu_torch.{m}" for m in new} <= mods
