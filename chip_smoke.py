@@ -48,14 +48,28 @@ one.  Phases:
 4e. old-style rank-5 Cloudy metal cooling with primordial_chemistry 1 at
    1,048,576 cells, f64: wall seconds, launches, converged share, and its
    first 4,096 cells against the CPU at rtol 1e-6;
+4f. serialization: phase 4's f64 ChemistryData through to_dict, JSON and
+   from_dict on the card, the restored solve bit-identical to phase 4's
+   with as many launches;
+4g. parallel: the f64 flagship on four shards of the card
+   (solve_chemistry_sharded, each shard on its compacted path),
+   bit-identical to phase 4b; a one-rank NCCL group
+   (initialize_distributed) with one all_reduce, in a child process;
+4h. the Python examples (grackle_tpu_torch/examples): cooling_rate with
+   chemistry 0-3 and both freefall runs in full, cooling_cell over its
+   first COOLING_CELL_STEPS steps, against tests/answers/examples at rtol
+   1e-6, with wall seconds and seconds a step;
+4i. the C ABI: the port's libgrackle_tpu.so built with g++, the unedited
+   C examples linked against it and run on the card and on the CPU: the
+   success marker and the same printed values;
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
    launch of the process, and with it phases 3 to 4e.
 
 Each phase prints one line.  Then one JSON line lists the kernels (the
-kernel's launches are the sum over the runs of phases 4 f64, 4d and 4e,
-each counted from 0 just before it), and the
+kernel's launches are the sum over the runs of phases 4 f64, 4d, 4e, 4f,
+4g and 4h, each counted from 0 just before it), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -64,6 +78,8 @@ jax nor grackle_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -113,6 +129,17 @@ EXACT_TAIL = 64
 EXACT_REFINE_STEPS = 300
 #: cells of each card solve that phases 4c and 4e run again on the CPU
 N_CPU_CHECK = 4096
+#: phase 4g: the flagship cut into this many shards on one card
+N_SHARDS = 4
+#: phase 4h: the steps of the cooling_cell example's stored trajectory
+#: (28,443 in all) run on the card, chosen from its measured step time
+COOLING_CELL_STEPS = 500
+#: phase 4i: the C examples, their success markers and extra cflags
+C_EXAMPLES = [
+    ("c_example.c", "C_EXAMPLE_SUCCESS", ()),
+    ("c_legacy_api_example.c", "C_LEGACY_EXAMPLE_SUCCESS",
+     ("-Wno-deprecated-declarations",)),
+]
 #: the exact step on the card against the CPU, by element size.  In f64
 #: the two builds' log, exp, pow and prefix sums differ by ulps, which
 #: the closed form carries through.  In f32 the step's Y(e0) - dt cancels
@@ -412,33 +439,20 @@ def functional_jit_chem(module, max_iterations=None):
 
 def functional_jit_answer(device, steps=1,
                           max_iterations=FUNCTIONAL_JIT_SUBCYCLES):
-    """examples/functional_jit.py on the port: 64 cells of constant
+    """examples/functional_jit.py on the port
+    (grackle_tpu_torch/examples/functional_jit.run): 64 cells of constant
     density from setup_fluid_container, evolved ``steps`` steps by a
     Python loop over functional.make_solve_fn, with the temperature
     closure after each step (the example's lax.scan body), each step
     capped at ``max_iterations`` subcycles (None: the default 10,000)."""
-    import torch
-
-    import grackle_tpu_torch
-    import grackle_tpu_torch.functional as gfn
     from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+    from grackle_tpu_torch.examples import functional_jit
 
-    my_chemistry = functional_jit_chem(grackle_tpu_torch, max_iterations)
-    fc = grackle_tpu_torch.setup_fluid_container(
-        my_chemistry, density=0.1, temperature=np.logspace(4.5, 6.5, 64),
-        converge=False, device=device, cloudy_data=synthetic_cloudy_groups())
-    f = {k: np.array(v) for k, v in fc.items()
-         if k in fc.density_fields or k == "energy"}
-    solve = gfn.make_solve_fn(my_chemistry)
-    temperature = gfn.make_temperature_fn(my_chemistry)
-    temps, energies = [], []
-    for _ in range(steps):
-        f, _ = solve(f, FUNCTIONAL_JIT_DT)
-        temps.append(temperature(f))
-        energies.append(f["energy"])
-    return {"temperature": torch.stack(temps).cpu().numpy(),
-            "energy": torch.stack(energies).cpu().numpy(),
-            "final_energy": f["energy"].cpu().numpy()}
+    out = functional_jit.run(steps, FUNCTIONAL_JIT_DT, device=device,
+                             cloudy_data=synthetic_cloudy_groups(),
+                             max_iterations=max_iterations)
+    del out["n_iterations"]
+    return out
 
 
 def refined_tabulated_energy(fields, dt, steps=EXACT_REFINE_STEPS):
@@ -526,21 +540,67 @@ def max_rel(got, want):
     return float(np.max(np.abs(got - want) / np.abs(want)))
 
 
-def answer_errors(name, out):
+def answer_errors(name, out, steps=None):
     """Per-key max relative error of one workload's outputs against its
-    stored answer; raises unless the keys are the stored ones and every
-    output is finite and of the stored shape."""
+    stored answer tests/answers/<name>.npz (``name`` may be
+    "examples/<tag>"), or against its first ``steps`` records; where a
+    stored value is 0, the absolute error.  Raises unless the keys are
+    the stored ones and every output is finite and of the stored
+    shape."""
     stored = np.load(os.path.join(REPO, "tests", "answers", f"{name}.npz"))
     if sorted(out) != sorted(stored.files):
         raise AssertionError(f"{name}: keys {sorted(out)} != stored "
                              f"{sorted(stored.files)}")
     errors = {}
     for key in stored.files:
-        got, want = _numpy(out[key]), stored[key]
+        got = _numpy(out[key])
+        want = stored[key] if steps is None else stored[key][:steps]
         if got.shape != want.shape or not np.all(np.isfinite(got)):
             raise AssertionError(f"{name}/{key}: bad output")
-        errors[key] = max_rel(got, want)
+        diff = np.abs(got - want)
+        errors[key] = float(np.max(np.where(
+            want == 0, diff, diff / np.where(want == 0, 1.0, np.abs(want)))))
     return errors
+
+
+def bit_differences(new_f, new_d, ref_f, ref_d):
+    """The fields (and ``cell_iterations``) in which one solve's result
+    is not bit-identical to another's; ["keys"] when their fields
+    differ."""
+    import torch
+
+    if sorted(new_f) != sorted(ref_f):
+        return ["keys"]
+    differ = [k for k in ref_f if not torch.equal(new_f[k], ref_f[k])]
+    if not torch.equal(new_d["cell_iterations"], ref_d["cell_iterations"]):
+        differ.append("cell_iterations")
+    return differ
+
+
+#: phase 4g's one-rank NCCL group, run in a process of its own so that
+#: a hang ends at its time limit
+NCCL_CHILD = """
+import socket, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from grackle_tpu_torch.parallel.distributed import (
+    global_cell_mesh, initialize_distributed)
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+size, rank = initialize_distributed(f"tcp://localhost:{port}", 1, 0)
+mesh = global_cell_mesh()
+x = torch.full((4,), 3.0, device=mesh[0])
+dist.all_reduce(x)
+total = float(x.sum())
+backend = dist.get_backend()
+dist.destroy_process_group()
+assert (size, rank, backend, total) == (1, 0, "nccl", 12.0), (
+    size, rank, backend, total)
+print(f"NCCL_OK world {size} rank {rank} backend {backend} mesh "
+      f"{[str(d) for d in mesh]} all_reduce sum {total}")
+"""
 
 
 def capture_network_inputs(cd, fields, dt, at):
@@ -940,11 +1000,11 @@ class Smoke:
             new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            return new_f, diag, wall, network_update_cuda.launches
+            return cd, new_f, diag, wall, network_update_cuda.launches
 
         run()  # warm-up: same solve, discarded
         torch.cuda.reset_peak_memory_stats()
-        new_f, diag, wall, launches = run()
+        cd, new_f, diag, wall, launches = run()
         peak = torch.cuda.max_memory_allocated() / 2**30
         subcycles = diag["subcycles"]
         n_it = int(diag["n_iterations"])
@@ -962,6 +1022,7 @@ class Smoke:
         if precision == 64:
             self.path_launches["compacted"] = launches
             self.compact64 = (new_f, diag, wall)
+            self.flagship64 = cd
         msg = (f"f{precision} compacted, {N_FLAGSHIP} cells dt "
                f"{DT_FLAGSHIP}: {wall:.3f} s, {N_FLAGSHIP / wall:.0f} "
                f"cells/s, n_iterations {n_it}, outer trips "
@@ -1022,13 +1083,11 @@ class Smoke:
             raise AssertionError(f"monolithic: {diag['trips']} trips, "
                                  f"{launches} launches for "
                                  f"{diag['subcycles']} subcycles")
-        differ = [k for k in new_f if not torch.equal(new_f[k], comp_f[k])]
-        if not torch.equal(diag["cell_iterations"],
-                           comp_d["cell_iterations"]):
-            differ.append("cell_iterations")
-        if sorted(new_f) != sorted(comp_f) or differ:
+        differ = bit_differences(new_f, diag, comp_f, comp_d)
+        if differ:
             raise AssertionError(f"monolithic vs compacted differ in "
-                                 f"{differ or 'keys'}")
+                                 f"{differ}")
+        self.mono64 = (new_f, diag)
         return (f"f64 monolithic {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, {launches} launches) against compacted "
                 f"{comp_wall:.3f} s ({comp_d['subcycles']} launches, "
@@ -1153,13 +1212,10 @@ class Smoke:
         if launches != diag["subcycles"] or launches == 0:
             raise AssertionError(f"functional: {launches} launches for "
                                  f"{diag['subcycles']} subcycles")
-        differ = [k for k in comp_f if not torch.equal(new_f[k], comp_f[k])]
-        if not torch.equal(diag["cell_iterations"],
-                           comp_d["cell_iterations"]):
-            differ.append("cell_iterations")
-        if sorted(new_f) != sorted(comp_f) or differ:
+        differ = bit_differences(new_f, diag, comp_f, comp_d)
+        if differ:
             raise AssertionError(f"make_solve_fn vs compacted differ in "
-                                 f"{differ or 'keys'}")
+                                 f"{differ}")
         self.path_launches["functional"] = launches
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
@@ -1213,6 +1269,240 @@ class Smoke:
         self.path_launches["old_style"] = launches
         return msg
 
+    def serialization(self):
+        """to_dict of phase 4's f64 flagship ChemistryData through JSON,
+        then from_dict on the card with the in-memory tables given again:
+        the restored context's solve of the flagship state must equal
+        phase 4's bit for bit, fields and per-cell subcycle counts, with
+        as many kernel launches."""
+        import torch
+
+        from grackle_tpu_torch import serialization
+        from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        if getattr(self, "flagship64", None) is None:
+            raise AssertionError("phase 4 f64 did not complete")
+        comp_f, comp_d, comp_wall = self.compact64
+        state = serialization.to_dict(self.flagship64)
+        cd = serialization.from_dict(json.loads(json.dumps(state)),
+                                     device="cuda",
+                                     cloudy_data=synthetic_cloudy_groups())
+        if serialization.to_dict(cd) != state:
+            raise AssertionError("the restored parameters differ")
+        fields = flagship_fields(cd, N_FLAGSHIP)
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        differ = bit_differences(new_f, diag, comp_f, comp_d)
+        if differ or launches != comp_d["subcycles"]:
+            raise AssertionError(f"restored vs phase 4: {launches} launches "
+                                 f"(phase 4 {comp_d['subcycles']}), differ "
+                                 f"in {differ}")
+        self.path_launches["serialization"] = launches
+        return (f"f64 flagship restored from {len(json.dumps(state))} bytes "
+                f"of JSON: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s, "
+                f"no warm-up; phase 4 {comp_wall:.3f} s), {launches} "
+                f"launches, {len(new_f)} fields and cell_iterations "
+                f"bit-identical to phase 4")
+
+    def sharded(self):
+        """The f64 flagship through parallel.solve_chemistry_sharded on
+        N_SHARDS shards of one card, each on its own compacted path: its
+        fields and per-cell subcycle counts must equal phase 4b's
+        monolithic solve bit for bit, its launches the shards' subcycles.
+        Then a one-rank NCCL group (initialize_distributed) with one
+        all_reduce on the card, in a process of its own."""
+        import torch
+
+        from grackle_tpu_torch.api import solve_path
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+        from grackle_tpu_torch.parallel.sharding import (
+            make_cell_mesh, solve_chemistry_sharded)
+
+        if getattr(self, "mono64", None) is None:
+            raise AssertionError("phase 4b did not complete")
+        mono_f, mono_d = self.mono64
+        cd = self.flagship64
+        mesh = make_cell_mesh(["cuda:0"] * N_SHARDS)
+        width = N_FLAGSHIP // N_SHARDS
+        if solve_path(cd.config, width) != "compact":
+            raise AssertionError(f"a {width}-cell shard does not take the "
+                                 f"compacted path")
+        fields = flagship_fields(cd, N_FLAGSHIP)
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = solve_chemistry_sharded(cd.context, fields,
+                                              DT_FLAGSHIP, mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        differ = bit_differences(new_f, diag, mono_f, mono_d)
+        if (differ or launches != sum(diag["subcycles"])
+                or not all(diag["trips"])):
+            raise AssertionError(
+                f"sharded: {launches} launches for subcycles "
+                f"{diag['subcycles']}, trips {diag['trips']}, differ from "
+                f"phase 4b in {differ}")
+        self.path_launches["sharded"] = launches
+        msg = (f"f64 flagship on {N_SHARDS} shards of {width} cells "
+               f"({mesh[0]}): {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s,"
+               f" no warm-up), per-shard n_iterations "
+               f"{diag['n_iterations'].tolist()}, subcycles "
+               f"{diag['subcycles']}, trips {diag['trips']}, {launches} "
+               f"launches; {len(new_f)} fields and cell_iterations "
+               f"bit-identical to phase 4b")
+        t0 = time.time()
+        res = subprocess.run([sys.executable, "-c", NCCL_CHILD, REPO],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0 or "NCCL_OK" not in res.stdout:
+            raise AssertionError(msg + f"; NCCL group failed: "
+                                 f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+        return (msg + f"; {res.stdout.strip().splitlines()[-1]} "
+                f"({time.time() - t0:.1f} s with its process)")
+
+    def examples(self):
+        """The Python examples on the card (grackle_tpu_torch/examples):
+        cooling_rate with chemistry 0-3 and both freefall cases in full,
+        cooling_cell over its first COOLING_CELL_STEPS steps, against
+        tests/answers/examples at rtol ANSWER_RTOL; wall seconds, seconds
+        a step (a solve_chemistry call) and kernel launches of each."""
+        import torch
+
+        from grackle_tpu_torch import api
+        from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+        from grackle_tpu_torch.examples import (cooling_cell, cooling_rate,
+                                                freefall)
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+        from grackle_tpu_torch.utilities.physical_constants import (
+            sec_per_Myr)
+
+        tables = synthetic_cloudy_groups()
+        stored = np.load(os.path.join(REPO, "tests", "answers", "examples",
+                                      "cooling_cell.npz"))
+        cell_time = (COOLING_CELL_STEPS - 0.5) * stored["time"][1] \
+            / sec_per_Myr
+        runs = [(f"cooling_rate_chem{chem}", None,
+                 lambda chem=chem: cooling_rate.run(
+                     chem, device="cuda", cloudy_data=tables, verbose=False))
+                for chem in range(4)]
+        runs += [(f"freefall_metal{metal}", None,
+                  lambda metal=metal: freefall.run(
+                      metal, device="cuda",
+                      cloudy_data=tables if metal else None, verbose=False))
+                 for metal in (0, 1)]
+        runs.append(("cooling_cell", COOLING_CELL_STEPS,
+                     lambda: cooling_cell.run(cell_time, device="cuda",
+                                              cloudy_data=tables,
+                                              verbose=False)))
+
+        # each example's steps are its solve_chemistry calls
+        calls = [0]
+        solve = api.ChemistryData.solve_chemistry
+
+        def counted(cd, *args, **kw):
+            calls[0] += 1
+            return solve(cd, *args, **kw)
+
+        parts, failed, total = [], [], 0
+        api.ChemistryData.solve_chemistry = counted
+        try:
+            for tag, steps, run in runs:
+                calls[0] = 0
+                network_update_cuda.launches = 0
+                t0 = time.time()
+                # the equilibrium loop writes its progress to stderr
+                with contextlib.redirect_stderr(io.StringIO()):
+                    out = run()
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = network_update_cuda.launches
+                total += launches
+                worst = max(answer_errors(f"examples/{tag}", out,
+                                          steps).values())
+                span = "in full" if steps is None else \
+                    f"first {steps} of {len(stored['time'])} steps"
+                parts.append(
+                    f"{tag} ({span}) {wall:.2f} s, {calls[0]} steps, "
+                    f"{wall / max(calls[0], 1):.4f} s a step, {launches} "
+                    f"launches, max rel {worst:.2e}")
+                # cooling_rate with chemistry 0 runs no solve
+                if worst > ANSWER_RTOL or (calls[0] and not launches):
+                    failed.append(tag)
+        finally:
+            api.ChemistryData.solve_chemistry = solve
+        if failed:
+            raise AssertionError(f"{failed} off their answers: "
+                                 + "; ".join(parts))
+        self.path_launches["examples"] = total
+        return "; ".join(parts)
+
+    def c_abi(self):
+        """The port's C library (cshim_build: g++ against this
+        interpreter's libpython) and the unedited examples/c_example.c and
+        c_legacy_api_example.c linked against it, each run with
+        GRACKLE_TPU_TORCH_DEVICE=cuda and =cpu: the success marker, and
+        the values the card run prints equal to the CPU run's."""
+        import shutil
+        import sysconfig
+        import tempfile
+
+        from grackle_tpu_torch import cshim_build
+
+        var = sysconfig.get_config_var
+        include = os.path.join(sysconfig.get_paths()["include"], "Python.h")
+        embed = (f"{sys.executable}: Py_ENABLE_SHARED "
+                 f"{var('Py_ENABLE_SHARED')}, {var('LDLIBRARY')} in "
+                 f"{var('LIBDIR')}, {include} "
+                 f"{'present' if os.path.exists(include) else 'MISSING'}")
+        if not var("Py_ENABLE_SHARED") or not os.path.exists(include):
+            raise AssertionError(f"cannot embed this interpreter: {embed}")
+        t0 = time.time()
+        lib = cshim_build.build()
+        parts = [embed, f"built {os.path.relpath(lib, REPO)} in "
+                 f"{time.time() - t0:.2f} s"]
+        lib_dir = os.path.dirname(lib)
+        work = tempfile.mkdtemp(prefix="chip_smoke_c_")
+        try:
+            for src, marker, extra in C_EXAMPLES:
+                exe = os.path.join(work, os.path.splitext(src)[0])
+                subprocess.run(
+                    ["gcc", *extra, "-I" + cshim_build.INCLUDE_DIR,
+                     os.path.join(REPO, "examples", src), "-L" + lib_dir,
+                     "-lgrackle_tpu", "-Wl,-rpath," + lib_dir, "-o", exe],
+                    capture_output=True, text=True, timeout=120,
+                    check=True)
+                printed = {}
+                for device in ("cuda", "cpu"):
+                    t0 = time.time()
+                    res = subprocess.run(
+                        [exe], capture_output=True, text=True, timeout=300,
+                        env=cshim_build.run_env(device), cwd=work)
+                    wall = time.time() - t0
+                    if res.returncode != 0 or marker not in res.stdout:
+                        raise AssertionError(
+                            f"{src} on {device}: rc {res.returncode} "
+                            f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+                    printed[device] = [line for line in
+                                       res.stdout.splitlines()
+                                       if "[0] = " in line]
+                    parts.append(f"{src} {device} {wall:.2f} s")
+                if not printed["cuda"] or printed["cuda"] != printed["cpu"]:
+                    raise AssertionError(f"{src}: card printed "
+                                         f"{printed['cuda']}, CPU "
+                                         f"{printed['cpu']}")
+                parts.append(f"{src}: {marker}, card = CPU: "
+                             + ", ".join(printed["cuda"]))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return "; ".join(parts) + (" (the host programs' kernel launches "
+                                   "are in their own processes, not counted)")
+
 
 def main() -> int:
     sys.path.insert(0, REPO)
@@ -1250,6 +1540,10 @@ def main() -> int:
     smoke.phase("4d functional make_solve_fn f64",
                 smoke.functional_flagship)
     smoke.phase("4e old-style rank 5, chemistry 1", smoke.old_style)
+    smoke.phase("4f serialization round trip f64", smoke.serialization)
+    smoke.phase("4g shards and ranks", smoke.sharded)
+    smoke.phase("4h examples", smoke.examples)
+    smoke.phase("4i C ABI", smoke.c_abi)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())

@@ -10,7 +10,10 @@ The ported slices cover ``solve_chemistry`` (monolithic, compacted and
 exact-integration tabulated cooling) for primordial_chemistry 0-3 with
 dust, metal (new- and old-style Cloudy) cooling, the CMB floor and the UV
 background, ``solve_chemistry_grid``, the derived fields, the functional
-closures (``functional``), version and info, and pygrackle's utilities.
+closures (``functional``), version and info, pygrackle's utilities,
+serialization, the deprecated ``api_compat`` names, per-shard and
+multi-process solves (``parallel``), the yt fields, the Python examples
+(``examples``) and the Python side of the C ABI (``cshim_bridge``).
 Entry points put their tensors on the CUDA card unless the caller passes
 ``device="cpu"``.  Each subcycle's network region runs as
 csrc/network_update.cu on CUDA tensors and as the plain twin
@@ -53,3 +56,10 @@ from .info import set_verbose, show_parameters  # noqa: F401
 
 # pygrackle's class is lowercase
 chemistry_data = ChemistryData
+
+
+def add_grackle_fields(*args, **kwargs):
+    """Lazy yt integration (requires yt): yt_fields.add_grackle_fields."""
+    from .yt_fields import add_grackle_fields as _impl
+
+    return _impl(*args, **kwargs)

@@ -243,11 +243,12 @@ def test_interpolation_matches(dtype):
 
 
 def test_port_imports_without_jax_or_h5py():
-    """The port and chip_smoke.py import with jax, grackle_tpu and h5py
-    blocked (a None entry in sys.modules makes any import of it fail)."""
+    """The port, its examples and chip_smoke.py import with jax,
+    grackle_tpu, h5py and yt blocked (a None entry in sys.modules makes
+    any import of it fail)."""
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "grackle_tpu", "h5py"):
+for name in ("jax", "jaxlib", "grackle_tpu", "h5py", "yt"):
     sys.modules[name] = None
 import grackle_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(grackle_tpu_torch.__path__,
@@ -266,5 +267,10 @@ print(" ".join(mods))
     assert len(mods) >= 20
     new = {"functional", "info", "version", "ops.exact_cool",
            "utilities.api", "utilities.convenience", "utilities.evolve",
-           "utilities.testing", "utilities.units"}
+           "utilities.testing", "utilities.units", "serialization",
+           "api_compat", "parallel.sharding", "parallel.distributed",
+           "yt_fields", "cshim_bridge", "cshim_build", "examples.common",
+           "examples.cooling_rate", "examples.cooling_cell",
+           "examples.freefall", "examples.functional_jit",
+           "examples.yt_grackle"}
     assert {f"grackle_tpu_torch.{m}" for m in new} <= mods

@@ -171,14 +171,18 @@ def test_testing_helpers_match():
 
 
 def test_exports_match():
-    """The package's top-level names and the deprecated utilities.api
-    shims are the JAX package's (its lazy yt hook aside)."""
+    """The package's top-level names, the lazy yt hook among them, and
+    the deprecated utilities.api shims are the JAX package's (submodules
+    aside: a package lists those its process has imported)."""
     want = {name for name in dir(grackle_tpu) if not name.startswith("_")}
-    want -= {"add_grackle_fields", "parallel", "ops", "rates", "data",
-             "yt_fields", "cshim_bridge", "api_compat", "serialization"}
+    want -= {"parallel", "ops", "rates", "data", "yt_fields",
+             "cshim_bridge", "api_compat", "serialization"}
     got = {name for name in dir(grackle_tpu_torch)
            if not name.startswith("_")}
     assert want - got == set()
+    assert "add_grackle_fields" in got
+    assert grackle_tpu_torch.add_grackle_fields.__module__ == \
+        "grackle_tpu_torch"
     for name in ["setup_fluid_container", "evolve_constant_density",
                  "evolve_freefall", "set_cosmology_units"]:
         assert getattr(papi_shim, name) is getattr(grackle_tpu_torch, name)
