@@ -61,7 +61,24 @@ one.  Phases:
    1e-6, with wall seconds and seconds a step;
 4i. the C ABI: the port's libgrackle_tpu.so built with g++, the unedited
    C examples linked against it and run on the card and on the CPU: the
-   success marker and the same printed values;
+   success marker, the same printed values, and kernel launches on the
+   card;
+4j. grackle data files: each committed HDF5 fixture of tests/data/h5
+   read by data/h5read.py (numpy and zlib; the card's machine has no
+   h5py) with its read time, every table and attribute of
+   synthetic_gz.h5 bit-identical to the synthetic tables in memory (the
+   old-style rank-4 file likewise, latest_small.h5 to what its script
+   wrote); the monolithic f64 flagship initialized from synthetic_gz.h5,
+   bit-identical to phase 4b; the cooling_rate example (chemistry 1)
+   with GRACKLE_DATA_FILE naming the fixture, against its stored answer;
+4k. the remaining host programs: the f64 and the float library built,
+   cxx_example, cxx_grid_example (with synthetic_gz.h5), cxx_omp_example
+   (g++ -fopenmp), dynamic_api_example and c_example against the float
+   library, each run on the card and on the CPU as its own process: the
+   success marker, the same standard output, and on the card a kernel
+   launch in every host that solves; fortran_example.f90 with the
+   port's generated module where gfortran is on PATH (a line says so
+   where it is not);
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
@@ -69,7 +86,9 @@ one.  Phases:
 
 Each phase prints one line.  Then one JSON line lists the kernels (the
 kernel's launches are the sum over the runs of phases 4 f64, 4d, 4e, 4f,
-4g and 4h, each counted from 0 just before it), and the
+4g, 4h, 4i, 4j and 4k, each counted from 0 just before it; a host
+program of 4i or 4k counts its own through
+GRACKLE_TPU_TORCH_LAUNCH_LOG), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -140,6 +159,19 @@ C_EXAMPLES = [
     ("c_legacy_api_example.c", "C_LEGACY_EXAMPLE_SUCCESS",
      ("-Wno-deprecated-declarations",)),
 ]
+#: phase 4j: the committed HDF5 fixtures (scripts/make_h5_fixtures.py)
+H5_FIXTURES = os.path.join(REPO, "tests", "data", "h5")
+#: phase 4k: the host programs of examples/: source, success marker,
+#: compiler flags, gr_float bytes of the library it links, arguments
+HOSTS = [
+    ("cxx_example.cpp", "CXX_EXAMPLE_SUCCESS", (), 8, ()),
+    ("cxx_grid_example.cpp", "CXX_GRID_EXAMPLE_SUCCESS", (), 8,
+     (os.path.join(H5_FIXTURES, "synthetic_gz.h5"),)),
+    ("cxx_omp_example.cpp", "CXX_OMP_EXAMPLE_SUCCESS", ("-fopenmp",), 8,
+     ()),
+    ("dynamic_api_example.c", "DYNAPI_EXAMPLE_SUCCESS", (), 8, ()),
+    ("c_example.c", "C_EXAMPLE_SUCCESS", ("-DGRACKLE_FLOAT_4",), 4, ()),
+]
 #: the exact step on the card against the CPU, by element size.  In f64
 #: the two builds' log, exp, pow and prefix sums differ by ulps, which
 #: the closed form carries through.  In f32 the step's Y(e0) - dt cancels
@@ -161,7 +193,8 @@ def _units(cd):
 
 def flagship_chem(precision, device, **kw):
     """BASELINE config 4: 12 species, dust, metal cooling, CMB floor, with
-    the synthetic Cloudy tables built in memory, at the default
+    the synthetic Cloudy tables built in memory (or read from the file
+    ``kw`` names as ``grackle_data_file``), at the default
     solver_compaction (the compacted path at the flagship's width) unless
     ``kw`` sets it."""
     from grackle_tpu_torch.api import ChemistryData
@@ -178,7 +211,8 @@ def flagship_chem(precision, device, **kw):
     for k, v in kw.items():
         setattr(cd, k, v)
     _units(cd)
-    cd.initialize(device=device, cloudy_data=synthetic_cloudy_groups())
+    cd.initialize(device=device, cloudy_data=(
+        None if cd.grackle_data_file else synthetic_cloudy_groups()))
     return cd
 
 
@@ -531,6 +565,155 @@ ANSWERS = {
 
 def _numpy(x):
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def _same_bits(got, want, where):
+    got, want = np.asarray(got), np.asarray(want)
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or got.tobytes() != want.tobytes()):
+        raise AssertionError(f"{where}: {got.dtype}{got.shape} differs "
+                             f"from {want.dtype}{want.shape}")
+
+
+def file_vs_groups(path, groups):
+    """Every table and attribute of a grackle data file, read by
+    data/h5read.py, against the in-memory groups of data/synthetic.py
+    (``synthetic_cloudy_groups()`` or ``synthetic_old_style_groups()``):
+    the same names, and each value bit for bit (``Info`` is bytes in
+    the file, str in memory).  Returns the count of values compared."""
+    from grackle_tpu_torch.data import h5read
+
+    count = 0
+    with h5read.File(path) as f:
+        top = sorted(k for k in groups if k == "old_style")
+        if sorted(f.attrs) != top:
+            raise AssertionError(f"file attributes {sorted(f.attrs)}")
+        for key in top:
+            _same_bits(f.attrs[key], groups[key], key)
+            count += 1
+        tables = sorted(k for k in groups if k in ("Primordial", "Metals"))
+        if f["CoolingRates"].keys() != tables:
+            raise AssertionError(f"CoolingRates {f['CoolingRates'].keys()}")
+        for name in tables:
+            mem = groups[name]
+            data = [k for k in ("Cooling", "Heating", "MMW") if k in mem]
+            group = f[f"/CoolingRates/{name}"]
+            if group.keys() != sorted(data):
+                raise AssertionError(f"{name}: {group.keys()}")
+            for dname in data:
+                dset = group[dname]
+                _same_bits(dset[...], mem[dname], f"{name}/{dname}")
+                attrs = dset.attrs
+                names = sorted(k for k in mem if k not in data)
+                if sorted(attrs) != names:
+                    raise AssertionError(f"{name}/{dname} attributes "
+                                         f"{sorted(attrs)}")
+                for key in names:
+                    _same_bits(attrs[key], mem[key], f"{name}/{dname}@{key}")
+                count += 1 + len(names)
+
+        def walk(group, mem, where):
+            nonlocal count
+            if group.keys() != sorted(mem):
+                raise AssertionError(f"{where}: {group.keys()}")
+            for key, val in mem.items():
+                if isinstance(val, dict):
+                    walk(group[key], val, f"{where}/{key}")
+                elif key == "Info":
+                    if bytes(group[key][()]).decode() != val:
+                        raise AssertionError(f"{where}/Info differs")
+                else:
+                    _same_bits(group[key][...], val, f"{where}/{key}")
+                count += 1
+
+        if "UVBRates" in groups:
+            walk(f["UVBRates"], groups["UVBRates"], "UVBRates")
+        elif "UVBRates" in f:
+            raise AssertionError("the file has UVBRates, memory has none")
+    return count
+
+
+def run_host(exe, device, work, args=()):
+    """A host program linked against the port's C library, run in
+    ``work`` as its own process with GRACKLE_TPU_TORCH_DEVICE=``device``:
+    (the completed process, wall seconds, the network kernel launches it
+    counted through GRACKLE_TPU_TORCH_LAUNCH_LOG)."""
+    from grackle_tpu_torch import cshim_build
+
+    log = os.path.join(work, "launches")
+    if os.path.exists(log):
+        os.remove(log)
+    env = cshim_build.run_env(device)
+    env["GRACKLE_TPU_TORCH_LAUNCH_LOG"] = log
+    t0 = time.time()
+    res = subprocess.run([exe, *args], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=work)
+    wall = time.time() - t0
+    launches = 0
+    if os.path.exists(log):
+        with open(log) as fh:
+            launches = int(fh.read())
+    return res, wall, launches
+
+
+def latest_small_content():
+    """What scripts/make_h5_fixtures.py writes into latest_small.h5, as
+    {"path": value, "path@attribute": value}; read back, each value's
+    dtype is the native-order one."""
+    return {
+        "/@old_style": np.int64(1),
+        "/@title": "h5read fixture",
+        "/@grid": np.linspace(0.0, 1.0, 5),
+        "/Tables@Rank": np.int32(2),
+        "/Tables/contiguous": np.arange(24.0).reshape(4, 6),
+        "/Tables/contiguous@Dimension": np.array([4, 6], dtype=np.int64),
+        "/Tables/contiguous@units": np.bytes_("erg/s"),
+        "/Tables/compact": np.arange(7, dtype="<i4") - 3,
+        "/Tables/big_endian": np.linspace(-2.0, 2.0, 9).astype("=f4"),
+        "/Info": np.bytes_("fixed-length info"),
+        "/VlenInfo": b"variable-length info",
+    }
+
+
+def read_whole(path):
+    """Every dataset and attribute of an HDF5 file through
+    data/h5read.py; returns the count of values read."""
+    from grackle_tpu_torch.data import h5read
+
+    count = 0
+
+    def walk(obj):
+        nonlocal count
+        count += len(obj.attrs)
+        if isinstance(obj, h5read.Group):
+            for _, item in obj.items():
+                walk(item)
+        else:
+            obj[()]
+            count += 1
+
+    with h5read.File(path) as f:
+        walk(f)
+    return count
+
+
+def latest_vs_content(path):
+    """latest_small.h5 through data/h5read.py against
+    latest_small_content(), bit for bit; returns the count compared."""
+    from grackle_tpu_torch.data import h5read
+
+    want = latest_small_content()
+    with h5read.File(path) as f:
+        for key, val in want.items():
+            where, _, attr = key.partition("@")
+            obj = f[where]
+            got = obj.attrs[attr] if attr else obj[()]
+            if isinstance(val, (str, bytes)):
+                if type(got) is not type(val) or got != val:
+                    raise AssertionError(f"{key}: {got!r}")
+            else:
+                _same_bits(got, val, key)
+    return len(want)
 
 
 def max_rel(got, want):
@@ -1446,8 +1629,9 @@ class Smoke:
         """The port's C library (cshim_build: g++ against this
         interpreter's libpython) and the unedited examples/c_example.c and
         c_legacy_api_example.c linked against it, each run with
-        GRACKLE_TPU_TORCH_DEVICE=cuda and =cpu: the success marker, and
-        the values the card run prints equal to the CPU run's."""
+        GRACKLE_TPU_TORCH_DEVICE=cuda and =cpu: the success marker, the
+        values the card run prints equal to the CPU run's, and the kernel
+        launches of the card run."""
         import shutil
         import sysconfig
         import tempfile
@@ -1468,6 +1652,7 @@ class Smoke:
                  f"{time.time() - t0:.2f} s"]
         lib_dir = os.path.dirname(lib)
         work = tempfile.mkdtemp(prefix="chip_smoke_c_")
+        total = 0
         try:
             for src, marker, extra in C_EXAMPLES:
                 exe = os.path.join(work, os.path.splitext(src)[0])
@@ -1479,11 +1664,7 @@ class Smoke:
                     check=True)
                 printed = {}
                 for device in ("cuda", "cpu"):
-                    t0 = time.time()
-                    res = subprocess.run(
-                        [exe], capture_output=True, text=True, timeout=300,
-                        env=cshim_build.run_env(device), cwd=work)
-                    wall = time.time() - t0
+                    res, wall, launches = run_host(exe, device, work)
                     if res.returncode != 0 or marker not in res.stdout:
                         raise AssertionError(
                             f"{src} on {device}: rc {res.returncode} "
@@ -1491,7 +1672,13 @@ class Smoke:
                     printed[device] = [line for line in
                                        res.stdout.splitlines()
                                        if "[0] = " in line]
-                    parts.append(f"{src} {device} {wall:.2f} s")
+                    parts.append(f"{src} {device} {wall:.2f} s, {launches} "
+                                 f"launches")
+                    if device == "cuda":
+                        if not launches:
+                            raise AssertionError(f"{src} on the card "
+                                                 f"launched no kernel")
+                        total += launches
                 if not printed["cuda"] or printed["cuda"] != printed["cpu"]:
                     raise AssertionError(f"{src}: card printed "
                                          f"{printed['cuda']}, CPU "
@@ -1500,8 +1687,183 @@ class Smoke:
                              + ", ".join(printed["cuda"]))
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        return "; ".join(parts) + (" (the host programs' kernel launches "
-                                   "are in their own processes, not counted)")
+        self.path_launches["c_examples"] = total
+        return "; ".join(parts)
+
+    def data_files(self):
+        """The committed HDF5 fixtures through data/h5read.py, each read
+        whole (timed) and held to what it was written from; the
+        monolithic f64 flagship initialized from synthetic_gz.h5 against
+        phase 4b bit for bit; cooling_rate (chemistry 1) with
+        GRACKLE_DATA_FILE naming the fixture, against its stored
+        answer."""
+        import torch
+
+        from grackle_tpu_torch.data.synthetic import (
+            synthetic_cloudy_groups, synthetic_old_style_groups)
+        from grackle_tpu_torch.examples import common, cooling_rate
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        parts = []
+        path = os.path.join(H5_FIXTURES, "synthetic_gz.h5")
+        checks = [
+            ("synthetic_gz.h5",
+             lambda p: file_vs_groups(p, synthetic_cloudy_groups())),
+            ("old_style_rank4_gz.h5",
+             lambda p: file_vs_groups(p, synthetic_old_style_groups(4))),
+            ("latest_small.h5", latest_vs_content),
+        ]
+        for name, check in checks:
+            fixture = os.path.join(H5_FIXTURES, name)
+            t0 = time.time()
+            n_read = read_whole(fixture)
+            read_ms = (time.time() - t0) * 1e3
+            compared = check(fixture)
+            parts.append(f"{name} ({os.path.getsize(fixture)} B): "
+                         f"{n_read} values read whole in {read_ms:.1f} ms, "
+                         f"{compared} bit-identical to what it was "
+                         f"written from")
+
+        if getattr(self, "mono64", None) is None:
+            raise AssertionError("phase 4b did not complete")
+        mono_f, mono_d = self.mono64
+        t0 = time.time()
+        cd = flagship_chem(64, "cuda", solver_compaction=0,
+                           grackle_data_file=path)
+        init = time.time() - t0
+        fields = flagship_fields(cd, N_FLAGSHIP)
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        differ = bit_differences(new_f, diag, mono_f, mono_d)
+        if differ or launches != diag["subcycles"] or launches == 0:
+            raise AssertionError(f"flagship from {path}: {launches} "
+                                 f"launches for {diag['subcycles']} "
+                                 f"subcycles, differs from phase 4b in "
+                                 f"{differ}")
+        self.path_launches["flagship_from_file"] = launches
+        parts.append(f"f64 monolithic flagship from synthetic_gz.h5: "
+                     f"initialize {init:.3f} s, solve {wall:.3f} s, "
+                     f"{launches} launches, {len(new_f)} fields and "
+                     f"cell_iterations bit-identical to phase 4b")
+        del cd, fields, new_f, diag
+
+        before = os.environ.get("GRACKLE_DATA_FILE")
+        os.environ["GRACKLE_DATA_FILE"] = path
+        try:
+            if common.get_data_file() != path:
+                raise AssertionError("GRACKLE_DATA_FILE not taken")
+            network_update_cuda.launches = 0
+            t0 = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                out = cooling_rate.run(1, device="cuda", verbose=False)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            if before is None:
+                del os.environ["GRACKLE_DATA_FILE"]
+            else:
+                os.environ["GRACKLE_DATA_FILE"] = before
+        launches = network_update_cuda.launches
+        worst = max(answer_errors("examples/cooling_rate_chem1",
+                                  out).values())
+        parts.append(f"cooling_rate chemistry 1 from GRACKLE_DATA_FILE="
+                     f"synthetic_gz.h5: {wall:.2f} s, {launches} launches,"
+                     f" max rel {worst:.2e} against its stored answer")
+        if worst > ANSWER_RTOL or not launches:
+            raise AssertionError("; ".join(parts))
+        self.path_launches["example_from_file"] = launches
+        return "; ".join(parts)
+
+    def hosts(self):
+        """The f64 and float libraries, then each host program of HOSTS
+        compiled against its library and run with
+        GRACKLE_TPU_TORCH_DEVICE=cuda and =cpu, each as its own process
+        that counts its kernel launches in a file: the success marker,
+        the same standard output on the card as on the CPU, and a launch
+        on the card in every host that solves; the Fortran example where
+        gfortran is on PATH."""
+        import shutil
+        import tempfile
+
+        from grackle_tpu_torch import cshim_build
+
+        t0 = time.time()
+        libs = [cshim_build.build(), cshim_build.build(4)]
+        parts = [f"built {', '.join(os.path.relpath(p, REPO) for p in libs)}"
+                 f" in {time.time() - t0:.2f} s"]
+        work = tempfile.mkdtemp(prefix="chip_smoke_hosts_")
+        total = 0
+
+        def run(exe, marker, args=()):
+            out, launches = {}, {}
+            for device in ("cuda", "cpu"):
+                res, wall, launches[device] = run_host(exe, device, work,
+                                                       args)
+                name = os.path.basename(exe)
+                if res.returncode != 0 or marker not in res.stdout:
+                    raise AssertionError(
+                        f"{name} on {device}: rc {res.returncode} "
+                        f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+                out[device] = res.stdout
+                parts.append(f"{name} {device} {wall:.2f} s, "
+                             f"{launches[device]} launches")
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"{exe}: card printed {out['cuda']!r},"
+                                     f" CPU {out['cpu']!r}")
+            return out["cuda"], launches["cuda"]
+
+        def compile_host(cmd):
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=180)
+            if res.returncode != 0:
+                raise AssertionError(" ".join(cmd) + "\n"
+                                     + res.stderr[-2000:])
+
+        try:
+            for src, marker, flags, float_bytes, args in HOSTS:
+                lib_dir = os.path.dirname(
+                    cshim_build.library_path(float_bytes))
+                exe = os.path.join(work, os.path.splitext(src)[0])
+                compile_host(["g++" if src.endswith(".cpp") else "gcc",
+                              *flags, "-I" + cshim_build.INCLUDE_DIR,
+                              os.path.join(REPO, "examples", src),
+                              "-L" + lib_dir, "-lgrackle_tpu",
+                              "-Wl,-rpath," + lib_dir, "-o", exe])
+                stdout, launches = run(exe, marker, args)
+                if src != "dynamic_api_example.c" and not launches:
+                    raise AssertionError(f"{src} on the card launched no "
+                                         f"kernel")
+                total += launches
+                printed = [line for line in stdout.splitlines()
+                           if "=" in line]
+                parts.append(f"{src}: {marker}, card = CPU"
+                             + (f": {', '.join(printed)}" if printed
+                                else ""))
+            if shutil.which("gfortran"):
+                exe = os.path.join(work, "fortran_example")
+                compile_host(["gfortran", cshim_build.FORTRAN_MODULE,
+                              os.path.join(REPO, "examples",
+                                           "fortran_example.f90"),
+                              "-J", work, "-L" + os.path.dirname(libs[0]),
+                              "-lgrackle_tpu",
+                              "-Wl,-rpath," + os.path.dirname(libs[0]),
+                              "-o", exe])
+                _, launches = run(exe, "FORTRAN_EXAMPLE_SUCCESS")
+                total += launches
+                parts.append("fortran_example.f90: FORTRAN_EXAMPLE_SUCCESS,"
+                             " card = CPU")
+            else:
+                parts.append("gfortran is not on PATH: fortran_example.f90 "
+                             "was not run")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        self.path_launches["hosts"] = total
+        return "; ".join(parts)
 
 
 def main() -> int:
@@ -1544,6 +1906,8 @@ def main() -> int:
     smoke.phase("4g shards and ranks", smoke.sharded)
     smoke.phase("4h examples", smoke.examples)
     smoke.phase("4i C ABI", smoke.c_abi)
+    smoke.phase("4j data files", smoke.data_files)
+    smoke.phase("4k host programs", smoke.hosts)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())

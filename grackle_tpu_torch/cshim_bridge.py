@@ -12,7 +12,9 @@ caller's arrays.
 
 The device is ``GRACKLE_TPU_TORCH_DEVICE`` (default ``cuda``); on a host
 without a card initialization raises, so the C call returns failure: it
-never falls back to the CPU.
+never falls back to the CPU.  A host's solves run in its own process:
+with ``GRACKLE_TPU_TORCH_LAUNCH_LOG`` naming a file, each solve writes
+there the network kernel's launches of the process so far.
 
 Handles: every initialized context gets an integer handle (the analogue of
 the reference's ``chemistry_data_storage``); the global-API variants use
@@ -200,6 +202,12 @@ def solve_chemistry(handle: int, units: dict, grid: dict,
             views[cname][:] = out
         else:
             views[cname][sel] = out
+    log = os.environ.get("GRACKLE_TPU_TORCH_LAUNCH_LOG")
+    if log:
+        from .ops.network_kernel import network_update_cuda
+
+        with open(log, "w") as fh:
+            fh.write(str(network_update_cuda.launches))
     return 1
 
 

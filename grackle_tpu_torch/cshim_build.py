@@ -6,21 +6,25 @@ embeds CPython and calls :mod:`grackle_tpu_torch.cshim_bridge`.  This
 module is the port's copy of clib/gen_header.py (the header and the
 parameter marshaling are generated from ``grackle_tpu_torch.config``'s
 registry) plus the build: :func:`build` writes ``grackle_tpu.h``,
-``params_marshal.inc`` and ``params_defaults.inc`` into
-``grackle_tpu_torch/_build/`` and compiles the library with ``g++`` into
-``grackle_tpu_torch/_build/clib/``, taking Python's include and link
-flags from ``sysconfig`` (no ``python3-config`` needed).  It rebuilds
-only when a source, a generated file or a flag changes.
+``params_marshal.inc``, ``params_defaults.inc`` and the Fortran module
+``grackle_tpu_fortran.f90`` into ``grackle_tpu_torch/_build/`` and
+compiles the library with ``g++`` into ``grackle_tpu_torch/_build/clib/``
+(``build(float_bytes=4)``: ``gr_float = float``, ``-DGRACKLE_FLOAT_4``,
+into ``_build/clib_float4/``, as clib's ``make FLOAT=4``), taking
+Python's include and link flags from ``sysconfig`` (no ``python3-config``
+needed).  It rebuilds only when a source, a generated file or a flag
+changes.
 
 A host code compiles against ``_build/include/grackle_tpu.h`` and links
 ``-L<that clib dir> -lgrackle_tpu -Wl,-rpath,<that clib dir>``, exactly
 as it links clib/'s library.  At run time the embedded interpreter must
 find grackle_tpu_torch and torch (``PYTHONPATH``), and the solve runs on
-``GRACKLE_TPU_TORCH_DEVICE`` (default ``cuda``).
+``GRACKLE_TPU_TORCH_DEVICE`` (default ``cuda``).  A host built against
+the float library defines ``GRACKLE_FLOAT_4`` too.  A Fortran host
+compiles ``_build/grackle_tpu_fortran.f90`` beside its own sources and
+links the (f64) library the same way.
 
-    python -m grackle_tpu_torch.cshim_build        # prints the library path
-
-The Fortran interface of clib/ is not built here.
+    python -m grackle_tpu_torch.cshim_build [--float]   # prints the path
 """
 
 from __future__ import annotations
@@ -39,10 +43,13 @@ INCLUDE_DIR = os.path.join(BUILD_DIR, "include")
 GEN_SRC_DIR = os.path.join(BUILD_DIR, "src")
 LIB_DIR = os.path.join(BUILD_DIR, "clib")
 LIBRARY = os.path.join(LIB_DIR, "libgrackle_tpu.so")
+FORTRAN_MODULE = os.path.join(BUILD_DIR, "grackle_tpu_fortran.f90")
 SOURCES = [os.path.join(CSRC, name) for name in (
     "grackle_tpu_shim.cpp", "params_access.inc", "deprecated_api.inc")]
 
 _CTYPE = {int: "int", float: "double", str: "const char *"}
+_FTYPE = {int: "integer(c_int)", float: "real(c_double)",
+          str: "type(c_ptr)"}
 _GENERATED = "/* generated by grackle_tpu_torch/cshim_build.py; do not edit */"
 
 # grackle_field_data member order (grackle: src/clib/grackle_types.h:36-81)
@@ -402,6 +409,181 @@ def access_text() -> str:
     return "\n".join(lines) + "\n"
 
 
+_F90_INTERFACES = """\
+  interface
+     integer(c_int) function set_default_chemistry_parameters( &
+          my_chemistry) bind(C, name='set_default_chemistry_parameters')
+       import
+       type(grackle_tpu_chemistry_data), intent(inout) :: my_chemistry
+     end function set_default_chemistry_parameters
+
+     integer(c_int) function local_initialize_chemistry_data( &
+          my_chemistry, my_rates, my_units) &
+          bind(C, name='local_initialize_chemistry_data')
+       import
+       type(grackle_tpu_chemistry_data), intent(inout) :: my_chemistry
+       type(grackle_tpu_storage), intent(inout) :: my_rates
+       type(grackle_tpu_units), intent(inout) :: my_units
+     end function local_initialize_chemistry_data
+
+     integer(c_int) function initialize_chemistry_data(my_units) &
+          bind(C, name='initialize_chemistry_data')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+     end function initialize_chemistry_data
+
+     integer(c_int) function local_solve_chemistry(my_chemistry, &
+          my_rates, my_units, my_fields, dt_value) &
+          bind(C, name='local_solve_chemistry')
+       import
+       type(grackle_tpu_chemistry_data), intent(inout) :: my_chemistry
+       type(grackle_tpu_storage), intent(inout) :: my_rates
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       real(c_double), value :: dt_value
+     end function local_solve_chemistry
+
+     integer(c_int) function solve_chemistry(my_units, my_fields, &
+          dt_value) bind(C, name='solve_chemistry')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       real(c_double), value :: dt_value
+     end function solve_chemistry
+
+     integer(c_int) function calculate_cooling_time(my_units, &
+          my_fields, cooling_time) bind(C, name='calculate_cooling_time')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       type(c_ptr), value :: cooling_time
+     end function calculate_cooling_time
+
+     integer(c_int) function calculate_temperature(my_units, &
+          my_fields, temperature) bind(C, name='calculate_temperature')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       type(c_ptr), value :: temperature
+     end function calculate_temperature
+
+     integer(c_int) function calculate_pressure(my_units, &
+          my_fields, pressure) bind(C, name='calculate_pressure')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       type(c_ptr), value :: pressure
+     end function calculate_pressure
+
+     integer(c_int) function calculate_gamma(my_units, &
+          my_fields, my_gamma) bind(C, name='calculate_gamma')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       type(c_ptr), value :: my_gamma
+     end function calculate_gamma
+
+     integer(c_int) function calculate_dust_temperature(my_units, &
+          my_fields, dust_temperature) &
+          bind(C, name='calculate_dust_temperature')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+       type(grackle_tpu_field_data), intent(inout) :: my_fields
+       type(c_ptr), value :: dust_temperature
+     end function calculate_dust_temperature
+
+     integer(c_int) function local_free_chemistry_data(my_chemistry, &
+          my_rates) bind(C, name='local_free_chemistry_data')
+       import
+       type(grackle_tpu_chemistry_data), intent(inout) :: my_chemistry
+       type(grackle_tpu_storage), intent(inout) :: my_rates
+     end function local_free_chemistry_data
+
+     ! units helpers (grackle_fortran_interface.def:147-167)
+     real(c_double) function get_velocity_units(my_units) &
+          bind(C, name='get_velocity_units')
+       import
+       type(grackle_tpu_units), intent(in) :: my_units
+     end function get_velocity_units
+
+     subroutine set_velocity_units(my_units) &
+          bind(C, name='set_velocity_units')
+       import
+       type(grackle_tpu_units), intent(inout) :: my_units
+     end subroutine set_velocity_units
+
+     real(c_double) function get_temperature_units(my_units) &
+          bind(C, name='get_temperature_units')
+       import
+       type(grackle_tpu_units), intent(in) :: my_units
+     end function get_temperature_units
+  end interface
+"""
+
+
+def fortran_text() -> str:
+    """grackle_tpu_fortran.f90: the BIND(C) module for Fortran host codes,
+    mirroring the header's structs from the same registry and field list
+    (clib/gen_header.py's ``gen_fortran``)."""
+    params_body = "\n".join(
+        f"     {_FTYPE[ptype]} :: {name}"
+        for name, (ptype, _) in PARAMETER_REGISTRY.items())
+    field_lines = "\n".join(
+        f"     type(c_ptr)    :: {m}" for m in FIELD_MEMBERS)
+    return f"""\
+!=======================================================================
+! Fortran 2003 interface to the grackle_tpu C ABI.
+! GENERATED by grackle_tpu_torch/cshim_build.py from the same parameter
+! registry and field list as the C header -- do not edit by hand.
+!
+! The analogue of the reference's Fortran interface
+! (grackle: src/clib/grackle_fortran_interface.def:15-243): BIND(C)
+! mirror types of chemistry_data / chemistry_data_storage / code_units /
+! grackle_field_data plus interfaces to every public entry point, so
+! Fortran hydro codes can `use grackle_tpu_fortran` and link against
+! libgrackle_tpu.so (build the library with the default FLOAT=8 so
+! gr_float is c_double).
+!=======================================================================
+
+module grackle_tpu_fortran
+  use iso_c_binding
+  implicit none
+
+  integer, parameter :: RKIND = c_double   ! build with FLOAT=8
+  integer, parameter :: DKIND = c_double
+
+  type, bind(C) :: grackle_tpu_chemistry_data
+{params_body}
+  end type grackle_tpu_chemistry_data
+
+  type, bind(C) :: grackle_tpu_units
+     integer(c_int) :: comoving_coordinates
+     real(c_double) :: density_units
+     real(c_double) :: length_units
+     real(c_double) :: time_units
+     real(c_double) :: velocity_units
+     real(c_double) :: a_units
+     real(c_double) :: a_value
+  end type grackle_tpu_units
+
+  type, bind(C) :: grackle_tpu_storage
+     integer(c_long_long) :: handle
+  end type grackle_tpu_storage
+
+  type, bind(C) :: grackle_tpu_field_data
+     integer(c_int) :: grid_rank
+     type(c_ptr)    :: grid_dimension
+     type(c_ptr)    :: grid_start
+     type(c_ptr)    :: grid_end
+     real(c_double) :: grid_dx
+{field_lines}
+  end type grackle_tpu_field_data
+
+{_F90_INTERFACES}
+end module grackle_tpu_fortran
+"""
+
+
 def _write_if_changed(path, text):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if os.path.exists(path):
@@ -415,14 +597,15 @@ def _write_if_changed(path, text):
 
 
 def generate() -> str:
-    """Write grackle_tpu.h and the two generated includes into
-    ``_build/``; returns the include directory."""
+    """Write grackle_tpu.h, the two generated includes and the Fortran
+    module into ``_build/``; returns the include directory."""
     _write_if_changed(os.path.join(INCLUDE_DIR, "grackle_tpu.h"),
                       header_text())
     _write_if_changed(os.path.join(GEN_SRC_DIR, "params_marshal.inc"),
                       marshal_text())
     _write_if_changed(os.path.join(GEN_SRC_DIR, "params_defaults.inc"),
                       defaults_text())
+    _write_if_changed(FORTRAN_MODULE, fortran_text())
     return INCLUDE_DIR
 
 
@@ -460,17 +643,31 @@ def run_env(device, env=None):
     return env
 
 
-def build_command(out):
+def library_path(float_bytes=8) -> str:
+    """libgrackle_tpu.so of the f64 build, or of the float build in a
+    directory of its own."""
+    if float_bytes == 8:
+        return LIBRARY
+    if float_bytes == 4:
+        return os.path.join(BUILD_DIR, "clib_float4", "libgrackle_tpu.so")
+    raise ValueError(f"gr_float is 4 or 8 bytes, not {float_bytes}")
+
+
+def build_command(out, float_bytes=8):
     cflags, ldflags = python_flags()
+    if float_bytes == 4:
+        cflags = ["-DGRACKLE_FLOAT_4", *cflags]
     return ["g++", "-O2", "-fPIC", "-std=c++17", "-Wall", "-shared",
             "-I" + INCLUDE_DIR, "-I" + GEN_SRC_DIR, "-I" + CSRC, *cflags,
             "-o", out, SOURCES[0], *ldflags]
 
 
-def build() -> str:
-    """Generate the header and includes, compile libgrackle_tpu.so if any
-    input changed since the last build, and return its path.  Raises if
-    g++ fails."""
+def build(float_bytes=8) -> str:
+    """Generate the header, includes and Fortran module, compile
+    libgrackle_tpu.so (``gr_float`` of ``float_bytes``) if any input
+    changed since its last build, and return its path.  Raises if g++
+    fails."""
+    library = library_path(float_bytes)
     generate()
     digest = hashlib.sha256()
     for path in SOURCES + [os.path.join(INCLUDE_DIR, "grackle_tpu.h"),
@@ -478,23 +675,25 @@ def build() -> str:
                            os.path.join(GEN_SRC_DIR, "params_defaults.inc")]:
         with open(path, "rb") as fh:
             digest.update(fh.read())
-    digest.update(" ".join(build_command(LIBRARY)).encode())
-    stamp = LIBRARY + ".sha256"
-    if os.path.exists(LIBRARY) and os.path.exists(stamp):
+    digest.update(" ".join(build_command(library, float_bytes)).encode())
+    stamp = library + ".sha256"
+    if os.path.exists(library) and os.path.exists(stamp):
         with open(stamp) as fh:
             if fh.read() == digest.hexdigest():
-                return LIBRARY
-    os.makedirs(LIB_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = build_command(tmp)
+                return library
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
+    cmd = build_command(tmp, float_bytes)
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("g++ failed to build libgrackle_tpu.so:\n"
                            + " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     _write_if_changed(stamp, digest.hexdigest())
-    return LIBRARY
+    return library
 
 
 if __name__ == "__main__":
-    print(build())
+    import sys
+
+    print(build(4 if "--float" in sys.argv[1:] else 8))

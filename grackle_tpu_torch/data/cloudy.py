@@ -7,11 +7,11 @@ Analogue of the reference's HDF5 table loader
 log10(CoolUnit) into code units, and moves dense tensors to the solver
 device.
 
-A table source is either a grackle data file (read with ``h5py``, imported
-only on that path) or the same content in memory: a dict mapping each group
-name to ``{"Cooling": array, "Heating": array, "MMW": array, "Rank": int,
-"Dimension": tuple, "Parameter1": array, ..., "Temperature": array}`` with
-a top-level ``"old_style"`` key where the file has that attribute
+A table source is either a grackle data file (read by ``data/h5read.py``
+with numpy and zlib, no h5py) or the same content in memory: a dict
+mapping each group name to ``{"Cooling": array, "Heating": array, "MMW":
+array, "Rank": int, "Dimension": tuple, "Parameter1": array, ...,
+"Temperature": array}`` with a top-level ``"old_style"`` key where the file has that attribute
 (data/synthetic.py builds one).  Both paths apply the units, log10 and
 ``SMALL_LOG_VALUE`` identically.
 """
@@ -23,6 +23,8 @@ from typing import Any, Tuple
 
 import numpy as np
 import torch
+
+from . import h5read
 
 SMALL_LOG_VALUE = -99.0
 CLOUDY_MAX_DIMENSION = 5
@@ -68,9 +70,7 @@ def _cool_unit(units) -> float:
 
 def _read_group(filename, group_name, read_heating, read_mmw) -> dict:
     """One group of a grackle data file as the in-memory schema."""
-    import h5py
-
-    with h5py.File(filename, "r") as f:
+    with h5read.File(filename) as f:
         dset = f[f"/CoolingRates/{group_name}/Cooling"]
         group = {name: np.asarray(val) for name, val in dset.attrs.items()}
         group["Cooling"] = dset[...]
@@ -174,7 +174,5 @@ def is_old_style(source) -> bool:
     attribute (initialize_cloudy_data.c:92-96)."""
     if isinstance(source, dict):
         return "old_style" in source
-    import h5py
-
-    with h5py.File(source, "r") as f:
+    with h5read.File(source) as f:
         return "old_style" in f.attrs

@@ -5,7 +5,7 @@ Rebuild of the reference's UVB machinery:
 
 * loader for ``/UVBRates/*`` (grackle:
   src/clib/initialize_UVbackground_data.c:27-320), from a grackle data
-  file through h5py or from the same groups in memory
+  file through ``data/h5read.py`` or from the same groups in memory
   (data/synthetic.synthetic_cloudy_groups carries them);
 * per-call piecewise log-log interpolation in (1+z) with the tanh ramp
   (grackle: src/clib/update_UVbackground_rates.c:25-289).  This is host
@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 
 from ..ops.common import PhotoRates
+from . import h5read
 
 _UVB_RATE_NAMES = [
     "k24", "k25", "k26", "k27", "k28", "k29", "k30", "k31",
@@ -57,13 +58,11 @@ class UVBTable:
 
 def _read_uvb_group(filename) -> dict:
     """The ``/UVBRates`` group of a grackle data file as nested dicts."""
-    import h5py
-
     def walk(group):
-        return {name: (walk(item) if isinstance(item, h5py.Group)
+        return {name: (walk(item) if isinstance(item, h5read.Group)
                        else item[()]) for name, item in group.items()}
 
-    with h5py.File(filename, "r") as f:
+    with h5read.File(filename) as f:
         return walk(f["/UVBRates"])
 
 

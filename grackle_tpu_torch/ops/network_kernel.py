@@ -197,20 +197,24 @@ _devices: dict = {}
 
 def _device_limits(lib, index):
     """The SM count of one device and the resident CTAs per SM of each
-    kernel; queried once per device."""
-    if index not in _devices:
-        vals = [ctypes.c_int() for _ in range(4)]
-        with torch.cuda.device(index):
-            err = lib.grackle_network_init(*map(ctypes.byref, vals))
-        tile, sms, ctas64, ctas32 = (v.value for v in vals)
-        if err != 0 or min(ctas64, ctas32) < 1:
-            raise RuntimeError(f"network kernel set-up failed: CUDA error "
-                               f"{err}, {ctas64}/{ctas32} CTAs per SM")
-        if tile != TILE:
-            raise RuntimeError(f"network kernel layout mismatch: library "
-                               f"tiles {tile} cells, the wrapper {TILE}")
-        _devices[index] = (sms, ctas32, ctas64)
-    return _devices[index]
+    kernel; queried once per device, under the library's lock (host
+    threads may launch at once)."""
+    with _lib_lock:
+        if index not in _devices:
+            vals = [ctypes.c_int() for _ in range(4)]
+            with torch.cuda.device(index):
+                err = lib.grackle_network_init(*map(ctypes.byref, vals))
+            tile, sms, ctas64, ctas32 = (v.value for v in vals)
+            if err != 0 or min(ctas64, ctas32) < 1:
+                raise RuntimeError(f"network kernel set-up failed: CUDA "
+                                   f"error {err}, {ctas64}/{ctas32} CTAs "
+                                   f"per SM")
+            if tile != TILE:
+                raise RuntimeError(f"network kernel layout mismatch: "
+                                   f"library tiles {tile} cells, the "
+                                   f"wrapper {TILE}")
+            _devices[index] = (sms, ctas32, ctas64)
+        return _devices[index]
 
 
 def input_slots(cfg) -> list[int]:

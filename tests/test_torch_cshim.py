@@ -2,14 +2,19 @@
 and grackle_tpu_torch.cshim_bridge, on the CPU.
 
 The port's generator writes the grackle_tpu.h, params_marshal.inc and
-params_defaults.inc that clib/gen_header.py writes (run on a copy of it),
-apart from the lines that name the package; the committed
-csrc/params_access.inc is its access table.  examples/c_example.c and
-examples/c_legacy_api_example.c, unedited, compile against the port's
-``libgrackle_tpu.so`` and run with ``GRACKLE_TPU_TORCH_DEVICE=cpu``; the
-values they print (six digits) are within 1e-5 relative of the JAX
-package's Python API on the same inputs, and without that variable
-(``cuda``) initialization fails on a host without a card.  The bridge's
+params_defaults.inc and Fortran module that clib/gen_header.py writes
+(run on a copy of it), apart from the lines that name the package; the
+committed csrc/params_access.inc is its access table.  The unedited
+examples compile against the port's ``libgrackle_tpu.so`` and run with
+``GRACKLE_TPU_TORCH_DEVICE=cpu``: c_example.c (against the f64 and the
+float library), c_legacy_api_example.c and cxx_example.cpp print values
+(six digits) within 1e-5 relative of the JAX package's Python API on the
+same inputs; dynamic_api_example.c, cxx_omp_example.cpp (host threads),
+cxx_grid_example.cpp (ghost zones, with the committed chunked data file;
+``-m slow``: about 20 s) and, where gfortran is, fortran_example.f90 with
+the port's generated module print their success markers.  Without
+``GRACKLE_TPU_TORCH_DEVICE`` (``cuda``) initialization fails on a host
+without a card.  The bridge's
 ghost zones and full-grid Sobolev stencil match the port's
 ``solve_chemistry_grid``.  Nothing under clib/ is built or written: the
 port builds into grackle_tpu_torch/_build/.
@@ -87,6 +92,24 @@ def test_header_matches_clib_generator(clib_generated):
     assert len(diff) == 1 and "cshim_build.py" in diff[0][0]
 
 
+def test_fortran_module_matches_clib_generator(clib_generated):
+    """The port's BIND(C) module is clib/gen_header.py's but for the
+    opening comment's lines that name the generator; clib's committed
+    module is that generator's output."""
+    with open(clib_generated / "grackle_tpu_fortran.f90") as fh:
+        fresh = fh.read()
+    with open(os.path.join(CLIB, "grackle_tpu_fortran.f90")) as fh:
+        assert fh.read() == fresh
+    diff = _differing_lines(cshim_build.fortran_text(), fresh)
+    assert diff, "the port's module names its own generator"
+    for got, want in diff:
+        assert got.startswith("! ") and want.startswith("! "), (got, want)
+        assert "gen_header.py" not in got and "TPU" not in got, got
+    cshim_build.generate()
+    with open(cshim_build.FORTRAN_MODULE) as fh:
+        assert fh.read() == cshim_build.fortran_text()
+
+
 def test_build_stays_in_the_port():
     """Every file the build reads or writes is the port's: its sources
     in csrc/, its outputs under _build/; the library and include are
@@ -99,7 +122,11 @@ def test_build_stays_in_the_port():
         assert os.path.dirname(path) == cshim_build.CSRC
     cmd = " ".join(cshim_build.build_command(out))
     assert CLIB not in cmd and "python3-config" not in cmd
-    assert "-lpython" in cmd
+    assert "-lpython" in cmd and "GRACKLE_FLOAT_4" not in cmd
+    float_lib = cshim_build.library_path(4)
+    assert os.path.dirname(float_lib) != cshim_build.LIB_DIR
+    assert os.path.commonpath([float_lib, pkg]) == pkg
+    assert "-DGRACKLE_FLOAT_4" in cshim_build.build_command(float_lib, 4)
 
 
 @needs_toolchain
@@ -121,16 +148,37 @@ def test_library_defines_every_header_name():
     assert declared <= defined, sorted(declared - defined)
 
 
-def _compile(tmp_path, src, extra=()):
-    lib_dir = os.path.dirname(cshim_build.build())
+def _compile(tmp_path, src, extra=(), float_bytes=8, compiler=None):
+    """One example linked against the port's library of ``float_bytes``
+    (a float host defines GRACKLE_FLOAT_4, as the library was built)."""
+    lib_dir = os.path.dirname(cshim_build.build(float_bytes))
+    if float_bytes == 4:
+        extra = ("-DGRACKLE_FLOAT_4", *extra)
+    compiler = compiler or ("g++" if src.endswith(".cpp") else "gcc")
     exe = str(tmp_path / os.path.splitext(src)[0])
     r = subprocess.run(
-        ["gcc", *extra, "-I" + cshim_build.INCLUDE_DIR,
+        [compiler, *extra, "-I" + cshim_build.INCLUDE_DIR,
          os.path.join(EXAMPLES, src), "-L" + lib_dir, "-lgrackle_tpu",
          "-Wl,-rpath," + lib_dir, "-o", exe],
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     return exe
+
+
+def _run(exe, marker, *args):
+    """A host that solves, on the CPU: its marker, and the kernel
+    launches its bridge counted in GRACKLE_TPU_TORCH_LAUNCH_LOG (none:
+    CPU tensors take the twin)."""
+    log = os.path.join(os.path.dirname(exe), "launches")
+    env = cshim_build.run_env("cpu")
+    env["GRACKLE_TPU_TORCH_LAUNCH_LOG"] = log
+    r = subprocess.run([exe, *args], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=os.path.dirname(exe))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+    assert marker in r.stdout
+    with open(log) as fh:
+        assert fh.read() == "0"
+    return r.stdout
 
 
 def _printed(stdout):
@@ -139,6 +187,9 @@ def _printed(stdout):
     for line in stdout.splitlines():
         if "[0] = " in line:
             name, val = line.split("[0] = ")
+            out[name] = float(val)
+        elif "[0] after solve = " in line:
+            name, val = line.split("[0] after solve = ")
             out[name] = float(val)
     return out
 
@@ -181,24 +232,26 @@ def jax_reference():
 
 
 @needs_toolchain
-@pytest.mark.parametrize("src, marker, extra", [
-    ("c_example.c", "C_EXAMPLE_SUCCESS", ()),
+@pytest.mark.parametrize("src, marker, extra, float_bytes", [
+    ("c_example.c", "C_EXAMPLE_SUCCESS", (), 8),
     ("c_legacy_api_example.c", "C_LEGACY_EXAMPLE_SUCCESS",
-     ("-Wno-deprecated-declarations",)),
-])
+     ("-Wno-deprecated-declarations",), 8),
+    ("c_example.c", "C_EXAMPLE_SUCCESS", (), 4),
+], ids=["c_example.c-C_EXAMPLE_SUCCESS-extra0",
+        "c_legacy_api_example.c-C_LEGACY_EXAMPLE_SUCCESS-extra1",
+        "c_example.c-float"])
 def test_c_example_runs_on_the_port(tmp_path, jax_reference, src, marker,
-                                    extra):
+                                    extra, float_bytes):
     """The unedited example, linked against the port's library, on the
-    CPU: its marker, and every printed value against the JAX package."""
+    CPU: its marker, and every printed value against the JAX package.
+    The float library's fields are float: the inputs round to float and
+    the f64 solve's results round back, well inside the six printed
+    digits."""
     clib_header = os.path.join(CLIB, "include", "grackle_tpu.h")
     before = open(clib_header).read() if os.path.exists(clib_header) \
         else None
-    exe = _compile(tmp_path, src, extra)
-    r = subprocess.run([exe], capture_output=True, text=True, timeout=300,
-                       env=cshim_build.run_env("cpu"), cwd=str(tmp_path))
-    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
-    assert marker in r.stdout
-    got = _printed(r.stdout)
+    exe = _compile(tmp_path, src, extra, float_bytes)
+    got = _printed(_run(exe, marker))
     want = jax_reference
     assert got and set(got) <= set(want), got
     for name, val in got.items():
@@ -206,6 +259,99 @@ def test_c_example_runs_on_the_port(tmp_path, jax_reference, src, marker,
                                    err_msg=name)
     if before is not None:
         assert open(clib_header).read() == before
+
+
+@pytest.fixture(scope="module")
+def jax_cxx_reference():
+    """examples/cxx_example.cpp's problem through the JAX package's
+    Python API: 16 cells of 6 species, ionized at T ~ 1e5 K, the cooling
+    time, then HI after a solve of 0.01."""
+    cd = grackle_tpu.chemistry_data()
+    cd.use_grackle = 1
+    cd.primordial_chemistry = 1
+    cd.density_units = 1.67262171e-24
+    cd.length_units = 3.0857e21
+    cd.time_units = 3.1556952e13
+    cd.initialize()
+    n, v = 16, cd.length_units / cd.time_units
+    f = {"density": np.ones(n), "HI": np.full(n, 1e-20),
+         "HII": np.full(n, 0.76), "HeI": np.full(n, 0.24),
+         "HeII": np.full(n, 1e-20), "HeIII": np.full(n, 1e-20),
+         "de": np.full(n, 0.76),
+         "energy": np.full(n, 1.0e5 / 0.6 / (v * v * 1.67262171e-24
+                                             / 1.3806504e-16)
+                           / (5.0 / 3.0 - 1.0))}
+    cooling_time = np.asarray(cd.calculate_cooling_time(f))[0]
+    new_f, _ = cd.solve_chemistry(f, 0.01)
+    return {"cooling_time": cooling_time, "HI": np.asarray(new_f["HI"])[0]}
+
+
+@needs_toolchain
+def test_cxx_example_runs_on_the_port(tmp_path, jax_cxx_reference):
+    """examples/cxx_example.cpp (g++) on the port: its marker, and its
+    printed cooling time and HI against the JAX package."""
+    got = _printed(_run(_compile(tmp_path, "cxx_example.cpp"),
+                        "CXX_EXAMPLE_SUCCESS"))
+    assert set(got) == set(jax_cxx_reference), got
+    for name, val in got.items():
+        np.testing.assert_allclose(val, jax_cxx_reference[name],
+                                   rtol=PRINT_RTOL, err_msg=name)
+
+
+@needs_toolchain
+def test_dynamic_api_example_runs_on_the_port(tmp_path):
+    """examples/dynamic_api_example.c: string-keyed access to every
+    parameter, pure C over csrc/params_access.inc; it starts no
+    interpreter, so it runs without PYTHONPATH."""
+    exe = _compile(tmp_path, "dynamic_api_example.c")
+    r = subprocess.run([exe], capture_output=True, text=True, timeout=60,
+                       env={"PATH": os.environ.get("PATH", "")})
+    assert r.returncode == 0, (r.stdout, r.stderr)
+    assert "DYNAPI_EXAMPLE_SUCCESS" in r.stdout
+    counts = {int: 0, float: 0, str: 0}
+    for ptype, _ in cshim_build.PARAMETER_REGISTRY.values():
+        counts[ptype] += 1
+    assert (f"{counts[int]} int, {counts[float]} double, {counts[str]} "
+            f"string params") in r.stdout
+
+
+@needs_toolchain
+def test_cxx_omp_example_runs_on_the_port(tmp_path):
+    """examples/cxx_omp_example.cpp (g++ -fopenmp): four host threads
+    solve at once and match a serial sweep, and two contexts driven from
+    two threads keep their own tables; the program checks both."""
+    out = _run(_compile(tmp_path, "cxx_omp_example.cpp",
+                        extra=("-fopenmp",)), "CXX_OMP_EXAMPLE_SUCCESS")
+    assert out.count("threaded HI[0]=") == 4
+
+
+@needs_toolchain
+@pytest.mark.slow
+def test_cxx_grid_example_runs_on_the_port(tmp_path):
+    """examples/cxx_grid_example.cpp with the committed chunked data file
+    (tests/data/h5/synthetic_gz.h5, read by data/h5read.py): chemistry
+    0-3 with metal cooling and the UVB on a ghost-zoned grid; every
+    ghost value comes back bit-identical (the program checks)."""
+    data = os.path.join(REPO, "tests", "data", "h5", "synthetic_gz.h5")
+    _run(_compile(tmp_path, "cxx_grid_example.cpp"),
+         "CXX_GRID_EXAMPLE_SUCCESS", data)
+
+
+@pytest.mark.skipif(not shutil.which("gfortran"),
+                    reason="no gfortran in this environment")
+def test_fortran_example_runs_on_the_port(tmp_path):
+    """examples/fortran_example.f90 with the port's generated module,
+    linked against the port's library, on the CPU."""
+    lib_dir = os.path.dirname(cshim_build.build())
+    exe = str(tmp_path / "fortran_example")
+    r = subprocess.run(
+        ["gfortran", cshim_build.FORTRAN_MODULE,
+         os.path.join(EXAMPLES, "fortran_example.f90"), "-J",
+         str(tmp_path), "-L" + lib_dir, "-lgrackle_tpu",
+         "-Wl,-rpath," + lib_dir, "-o", exe],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    _run(exe, "FORTRAN_EXAMPLE_SUCCESS")
 
 
 @needs_toolchain

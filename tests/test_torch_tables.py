@@ -272,5 +272,5 @@ print(" ".join(mods))
            "yt_fields", "cshim_bridge", "cshim_build", "examples.common",
            "examples.cooling_rate", "examples.cooling_cell",
            "examples.freefall", "examples.functional_jit",
-           "examples.yt_grackle"}
+           "examples.yt_grackle", "data.h5read"}
     assert {f"grackle_tpu_torch.{m}" for m in new} <= mods
