@@ -72,13 +72,22 @@ one.  Phases:
    bit-identical to phase 4b; the cooling_rate example (chemistry 1)
    with GRACKLE_DATA_FILE naming the fixture, against its stored answer;
 4k. the remaining host programs: the f64 and the float library built,
-   cxx_example, cxx_grid_example (with synthetic_gz.h5), cxx_omp_example
+   cxx_example, cxx_grid_example (with a new-style data file the port's
+   writer wrote, data/synthetic.make_synthetic_data_file), cxx_omp_example
    (g++ -fopenmp), dynamic_api_example and c_example against the float
    library, each run on the card and on the CPU as its own process: the
    success marker, the same standard output, and on the card a kernel
    launch in every host that solves; fortran_example.f90 with the
    port's generated module where gfortran is on PATH (a line says so
    where it is not);
+4l. data files written by the port (data/h5write.py, no h5py): the
+   new-style synthetic file and the old-style rank-4 and rank-5 files
+   written into a temporary directory, with each write's seconds and
+   bytes, each read back by data/h5read.py bit-identical to the tables
+   in memory; the monolithic f64 flagship initialized from the written
+   new-style file, bit-identical to phase 4b; phase 4e's old-style
+   rank-5 chemistry-1 solve from the written rank-5 file, bit-identical
+   to phase 4e's from memory;
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
@@ -86,7 +95,7 @@ one.  Phases:
 
 Each phase prints one line.  Then one JSON line lists the kernels (the
 kernel's launches are the sum over the runs of phases 4 f64, 4d, 4e, 4f,
-4g, 4h, 4i, 4j and 4k, each counted from 0 just before it; a host
+4g, 4h, 4i, 4j, 4k and 4l, each counted from 0 just before it; a host
 program of 4i or 4k counts its own through
 GRACKLE_TPU_TORCH_LAUNCH_LOG), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
@@ -163,10 +172,11 @@ C_EXAMPLES = [
 H5_FIXTURES = os.path.join(REPO, "tests", "data", "h5")
 #: phase 4k: the host programs of examples/: source, success marker,
 #: compiler flags, gr_float bytes of the library it links, arguments
+#: ("{data_file}": a new-style data file the port's writer wrote)
 HOSTS = [
     ("cxx_example.cpp", "CXX_EXAMPLE_SUCCESS", (), 8, ()),
     ("cxx_grid_example.cpp", "CXX_GRID_EXAMPLE_SUCCESS", (), 8,
-     (os.path.join(H5_FIXTURES, "synthetic_gz.h5"),)),
+     ("{data_file}",)),
     ("cxx_omp_example.cpp", "CXX_OMP_EXAMPLE_SUCCESS", ("-fopenmp",), 8,
      ()),
     ("dynamic_api_example.c", "DYNAPI_EXAMPLE_SUCCESS", (), 8, ()),
@@ -500,10 +510,11 @@ def refined_tabulated_energy(fields, dt, steps=EXACT_REFINE_STEPS):
     return f["energy"]
 
 
-def old_style_chem(device, rank):
+def old_style_chem(device, rank, data_file=None):
     """tests/test_old_style_tables.py's chemistry: 6 species with metal
     cooling from a legacy rank-4 or rank-5 Cloudy table, built in memory
-    (data/synthetic.synthetic_old_style_groups)."""
+    (data/synthetic.synthetic_old_style_groups) or read from
+    ``data_file``."""
     from grackle_tpu_torch.api import ChemistryData
     from grackle_tpu_torch.data.synthetic import synthetic_old_style_groups
 
@@ -513,8 +524,12 @@ def old_style_chem(device, rank):
     cd.primordial_chemistry = 1
     cd.metal_cooling = 1
     _units(cd)
-    cd.initialize(device=device,
-                  cloudy_data=synthetic_old_style_groups(rank))
+    if data_file is None:
+        cd.initialize(device=device,
+                      cloudy_data=synthetic_old_style_groups(rank))
+    else:
+        cd.grackle_data_file = data_file
+        cd.initialize(device=device)
     return cd
 
 
@@ -1450,6 +1465,7 @@ class Smoke:
         if worst > ANSWER_RTOL:
             raise AssertionError(msg)
         self.path_launches["old_style"] = launches
+        self.old5 = (new_f, diag)
         return msg
 
     def serialization(self):
@@ -1724,33 +1740,9 @@ class Smoke:
                          f"{compared} bit-identical to what it was "
                          f"written from")
 
-        if getattr(self, "mono64", None) is None:
-            raise AssertionError("phase 4b did not complete")
-        mono_f, mono_d = self.mono64
-        t0 = time.time()
-        cd = flagship_chem(64, "cuda", solver_compaction=0,
-                           grackle_data_file=path)
-        init = time.time() - t0
-        fields = flagship_fields(cd, N_FLAGSHIP)
-        torch.cuda.synchronize()
-        network_update_cuda.launches = 0
-        t0 = time.time()
-        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = network_update_cuda.launches
-        differ = bit_differences(new_f, diag, mono_f, mono_d)
-        if differ or launches != diag["subcycles"] or launches == 0:
-            raise AssertionError(f"flagship from {path}: {launches} "
-                                 f"launches for {diag['subcycles']} "
-                                 f"subcycles, differs from phase 4b in "
-                                 f"{differ}")
-        self.path_launches["flagship_from_file"] = launches
-        parts.append(f"f64 monolithic flagship from synthetic_gz.h5: "
-                     f"initialize {init:.3f} s, solve {wall:.3f} s, "
-                     f"{launches} launches, {len(new_f)} fields and "
-                     f"cell_iterations bit-identical to phase 4b")
-        del cd, fields, new_f, diag
+        msg, self.path_launches["flagship_from_file"] = \
+            self.flagship_from_file(path)
+        parts.append(msg)
 
         before = os.environ.get("GRACKLE_DATA_FILE")
         os.environ["GRACKLE_DATA_FILE"] = path
@@ -1779,6 +1771,50 @@ class Smoke:
         self.path_launches["example_from_file"] = launches
         return "; ".join(parts)
 
+    @staticmethod
+    def solve_as(cd, fields, ref, what):
+        """``cd``'s solve of ``fields`` at DT_FLAGSHIP on the card, with
+        its kernel launches counted from 0: its fields and per-cell
+        subcycle counts must equal ``ref`` ((fields, diagnostics) of an
+        earlier phase) bit for bit, one launch a subcycle.  Returns (wall
+        seconds, launches, the count of fields)."""
+        import torch
+
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+
+        torch.cuda.synchronize()
+        network_update_cuda.launches = 0
+        t0 = time.time()
+        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = network_update_cuda.launches
+        differ = bit_differences(new_f, diag, *ref)
+        if differ or launches != diag["subcycles"] or launches == 0:
+            raise AssertionError(f"{what}: {launches} launches for "
+                                 f"{diag['subcycles']} subcycles, differs "
+                                 f"in {differ}")
+        return wall, launches, len(new_f)
+
+    def flagship_from_file(self, path):
+        """The monolithic f64 flagship initialized from the data file
+        ``path``, against phase 4b (``solve_as``).  Returns (message,
+        launches)."""
+        if getattr(self, "mono64", None) is None:
+            raise AssertionError("phase 4b did not complete")
+        name = os.path.basename(path)
+        t0 = time.time()
+        cd = flagship_chem(64, "cuda", solver_compaction=0,
+                           grackle_data_file=path)
+        init = time.time() - t0
+        wall, launches, n_fields = self.solve_as(
+            cd, flagship_fields(cd, N_FLAGSHIP), self.mono64,
+            f"flagship from {name} against phase 4b")
+        return (f"f64 monolithic flagship from {name}: initialize "
+                f"{init:.3f} s, solve {wall:.3f} s, {launches} launches, "
+                f"{n_fields} fields and cell_iterations bit-identical to "
+                f"phase 4b", launches)
+
     def hosts(self):
         """The f64 and float libraries, then each host program of HOSTS
         compiled against its library and run with
@@ -1791,6 +1827,7 @@ class Smoke:
         import tempfile
 
         from grackle_tpu_torch import cshim_build
+        from grackle_tpu_torch.data.synthetic import make_synthetic_data_file
 
         t0 = time.time()
         libs = [cshim_build.build(), cshim_build.build(4)]
@@ -1798,6 +1835,8 @@ class Smoke:
                  f" in {time.time() - t0:.2f} s"]
         work = tempfile.mkdtemp(prefix="chip_smoke_hosts_")
         total = 0
+        data_file = make_synthetic_data_file(
+            os.path.join(work, "synthetic_cloudy.h5"))
 
         def run(exe, marker, args=()):
             out, launches = {}, {}
@@ -1834,7 +1873,9 @@ class Smoke:
                               os.path.join(REPO, "examples", src),
                               "-L" + lib_dir, "-lgrackle_tpu",
                               "-Wl,-rpath," + lib_dir, "-o", exe])
-                stdout, launches = run(exe, marker, args)
+                stdout, launches = run(
+                    exe, marker, [a.format(data_file=data_file)
+                                  for a in args])
                 if src != "dynamic_api_example.c" and not launches:
                     raise AssertionError(f"{src} on the card launched no "
                                          f"kernel")
@@ -1863,6 +1904,67 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         self.path_launches["hosts"] = total
+        return "; ".join(parts)
+
+
+    def data_written(self):
+        """The port's writers (data/synthetic.make_synthetic_data_file,
+        make_synthetic_old_style_file of rank 4 and 5) into a temporary
+        directory, each write timed; each file read back by data/h5read.py
+        bit for bit against the tables in memory; the monolithic f64
+        flagship initialized from the written new-style file against
+        phase 4b bit for bit; phase 4e's old-style rank-5 chemistry-1
+        solve from the written rank-5 file against phase 4e's solve from
+        memory, bit for bit."""
+        import shutil
+        import tempfile
+
+        from grackle_tpu_torch.data.synthetic import (
+            make_synthetic_data_file, make_synthetic_old_style_file,
+            synthetic_cloudy_groups, synthetic_old_style_groups)
+
+        if getattr(self, "old5", None) is None:
+            raise AssertionError("phase 4e did not complete")
+        parts = []
+        work = tempfile.mkdtemp(prefix="chip_smoke_written_")
+        try:
+            writes = [
+                ("synthetic.h5", make_synthetic_data_file,
+                 synthetic_cloudy_groups),
+                ("old_style_rank4.h5",
+                 lambda p: make_synthetic_old_style_file(p, 4),
+                 lambda: synthetic_old_style_groups(4)),
+                ("old_style_rank5.h5",
+                 lambda p: make_synthetic_old_style_file(p, 5),
+                 lambda: synthetic_old_style_groups(5)),
+            ]
+            paths = {}
+            for name, write, groups in writes:
+                path = paths[name] = os.path.join(work, name)
+                t0 = time.time()
+                write(path)
+                secs = time.time() - t0
+                compared = file_vs_groups(path, groups())
+                parts.append(f"{name} written in {secs:.3f} s, "
+                             f"{os.path.getsize(path)} B, {compared} "
+                             f"values read back bit-identical")
+
+            msg, self.path_launches["flagship_from_written_file"] = \
+                self.flagship_from_file(paths["synthetic.h5"])
+            parts.append(msg)
+
+            cd = old_style_chem("cuda", 5, paths["old_style_rank5.h5"])
+            wall, launches, n_fields = self.solve_as(
+                cd, answer_state(cd, n=N_FLAGSHIP), self.old5,
+                "old-style rank 5 from the written file against phase 4e")
+            self.path_launches["old_style_from_written_file"] = launches
+            parts.append(f"f64 old-style rank 5, chemistry 1 from "
+                         f"old_style_rank5.h5, {N_FLAGSHIP} cells: "
+                         f"{wall:.3f} s, {launches} launches, {n_fields} "
+                         f"fields and cell_iterations bit-identical to "
+                         f"phase 4e (from memory)")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         return "; ".join(parts)
 
 
@@ -1908,6 +2010,7 @@ def main() -> int:
     smoke.phase("4i C ABI", smoke.c_abi)
     smoke.phase("4j data files", smoke.data_files)
     smoke.phase("4k host programs", smoke.hosts)
+    smoke.phase("4l data files written", smoke.data_written)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())

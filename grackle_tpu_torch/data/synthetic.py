@@ -1,13 +1,14 @@
-"""Synthetic grackle-format Cloudy and UVB tables, built in memory.
+"""Synthetic grackle-format Cloudy and UVB tables, in memory or as files.
 
-Port of the NumPy table builders of grackle_tpu/data/synthetic.py.  The
-real data files (e.g. CloudyData_UVB=HM2012.h5) are distributed
-separately (grackle: grackle_data_files submodule); the JAX package writes
-these synthetic tables to an HDF5 file.  Here the same arrays are returned
-in memory, in the layout ``data/cloudy.load_cloudy_table`` and
-``data/uvb.load_uvb_table`` read, so no ``h5py`` is needed: a machine
-without it still solves the metal-cooling, tabulated and UVB
-configurations.
+Port of grackle_tpu/data/synthetic.py.  The real data files (e.g.
+CloudyData_UVB=HM2012.h5) are distributed separately (grackle:
+grackle_data_files submodule).  ``synthetic_cloudy_groups`` and
+``synthetic_old_style_groups`` return the synthetic tables in memory, in
+the layout ``data/cloudy.load_cloudy_table`` and
+``data/uvb.load_uvb_table`` read; ``make_synthetic_data_file`` and
+``make_synthetic_old_style_file`` write those same arrays as the JAX
+package's files (same groups, datasets, attributes, dtypes and shapes)
+through ``data/h5write.py``, so no ``h5py`` is needed for either.
 
 The primordial cooling/MMW tables come from the analytic
 collisional-ionization-equilibrium model (utilities/primordial_equilibrium);
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utilities import primordial_equilibrium as peq
+from . import h5write
 
 
 def _primordial_tables(log_nh, zgrid, log_T):
@@ -187,3 +189,65 @@ def synthetic_old_style_groups(rank=4):
     for i, p in enumerate(pars):
         group[f"Parameter{i + 1}"] = np.asarray(p, dtype=np.float64)
     return {"old_style": np.int64(1), "Metals": group}
+
+
+#: the file attributes of each dataset of a ``CoolingRates/<group>``
+_TABLE_ATTRS = ("Rank", "Dimension", "Parameter1", "Parameter2",
+                "Parameter3", "Parameter4", "Temperature")
+
+
+def _write_table_group(f, name, group):
+    """``CoolingRates/<name>``: each dataset of ``group`` with the
+    group's table attributes attached, in the JAX writer's order."""
+    grp = f.create_group(f"CoolingRates/{name}")
+    for dname in ("Cooling", "Heating", "MMW"):
+        if dname not in group:
+            continue
+        ds = grp.create_dataset(dname, data=group[dname])
+        for key in _TABLE_ATTRS:
+            if key in group:
+                ds.attrs[key] = group[key]
+
+
+def _write_tree(grp, tree):
+    """Nested dicts as groups and datasets (``str`` as a fixed-length
+    ASCII string, as the JAX writer's ``np.bytes_``)."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _write_tree(grp.create_group(key), val)
+        else:
+            grp.create_dataset(key, data=np.bytes_(val)
+                               if isinstance(val, str) else val)
+
+
+def make_synthetic_old_style_file(path, rank=4):
+    """Write a legacy ('old_style') metal-cooling file with a rank-4
+    (n_H, logZ, e_frac, T) or rank-5 (+z) Metals table: the arrays of
+    ``synthetic_old_style_groups(rank)``, as grackle_tpu's writer of the
+    same name writes them (grackle: src/clib/cool1d_cloudy_old_tables_g.F,
+    initialize_cloudy_data.c:92-96).  Returns ``path``."""
+    groups = synthetic_old_style_groups(rank)
+    with h5write.File(path, "w") as f:
+        f.attrs["old_style"] = groups["old_style"]
+        _write_table_group(f, "Metals", groups["Metals"])
+    return path
+
+
+def make_synthetic_data_file(
+    path,
+    n_density=25,
+    n_redshift=10,
+    n_temperature=121,
+    z_max=10.0,
+):
+    """Write a synthetic new-style grackle data file (Cloudy + UVB): the
+    arrays of ``synthetic_cloudy_groups`` with the same arguments, as
+    grackle_tpu's writer of the same name writes them.  Returns
+    ``path``."""
+    groups = synthetic_cloudy_groups(n_density, n_redshift, n_temperature,
+                                     z_max)
+    with h5write.File(path, "w") as f:
+        _write_table_group(f, "Primordial", groups["Primordial"])
+        _write_table_group(f, "Metals", groups["Metals"])
+        _write_tree(f.create_group("UVBRates"), groups["UVBRates"])
+    return path

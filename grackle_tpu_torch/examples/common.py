@@ -1,7 +1,11 @@
 """Shared example helpers (port of examples/common.py): the device and
-the Cloudy tables the examples run with."""
+the grackle data file the examples run with."""
 
 import os
+
+#: the synthetic data file get_data_file writes once, beside the examples
+SYNTHETIC_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              ".synthetic_cloudy.h5")
 
 
 def get_device():
@@ -10,13 +14,17 @@ def get_device():
 
 
 def get_data_file():
-    """The examples' ``cloudy_data``: ``GRACKLE_DATA_FILE`` if it names a
-    file (e.g. a real CloudyData_UVB=HM2012.h5), otherwise the synthetic
-    tables built in memory (the schema and values of the JAX package's
-    synthetic file, with no h5 file written)."""
+    """``GRACKLE_DATA_FILE`` if it names a file (e.g. a real
+    CloudyData_UVB=HM2012.h5), otherwise SYNTHETIC_FILE, written by
+    ``data/synthetic.make_synthetic_data_file`` the first time it is
+    needed (the schema and values of the JAX package's synthetic file;
+    written under a temporary name and renamed, so a process running
+    beside this one never reads half of it)."""
     path = os.environ.get("GRACKLE_DATA_FILE")
     if path and os.path.exists(path):
         return path
-    from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+    if not os.path.exists(SYNTHETIC_FILE):
+        from grackle_tpu_torch.data.synthetic import make_synthetic_data_file
 
-    return synthetic_cloudy_groups()
+        make_synthetic_data_file(SYNTHETIC_FILE)
+    return SYNTHETIC_FILE

@@ -56,6 +56,25 @@ def pad_to_multiple(fields, multiple: int):
     return out, n
 
 
+def shard_fields(fields, mesh):
+    """The cell axis of every field cut into ``len(mesh)`` equal pieces,
+    piece i on ``mesh[i]``: one dict of fields per entry of the mesh
+    (the counterpart of placing the fields with a ``NamedSharding`` over
+    the cell axis).  Raises ValueError, as ``jax.device_put`` does, when
+    the cell count is not a multiple of ``len(mesh)``."""
+    n_shards = len(mesh)
+    out = [{} for _ in mesh]
+    for key, val in fields.items():
+        n = val.shape[0]
+        if n % n_shards:
+            raise ValueError(f"field {key!r} of {n} cells does not cut "
+                             f"into {n_shards} equal shards")
+        width = n // n_shards
+        for i, device in enumerate(mesh):
+            out[i][key] = val[i * width:(i + 1) * width].to(device)
+    return out
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     def index(d):
         if d.index is not None or d.type != "cuda":
@@ -101,27 +120,22 @@ def solve_chemistry_sharded(ctx, fields, dt, mesh, grid_dx: float = 0.0,
     """
     cfg = ctx.config
     f, imetal = _api._prep_fields(ctx, fields)
-    n_shards = len(mesh)
-    f, n_orig = pad_to_multiple(f, n_shards)
     if l_h2shield_field is not None:
-        l_h2shield_field = pad_to_multiple(
-            {"l": _api.shield_length_tensor(ctx, l_h2shield_field)},
-            n_shards)[0]["l"]
+        # cut with the fields, taken out of each shard's again
+        f = dict(f, l_h2shield_field=_api.shield_length_tensor(
+            ctx, l_h2shield_field))
+    f, n_orig = pad_to_multiple(f, len(mesh))
     us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
     pr = _api._photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
 
-    width = f["density"].shape[0] // n_shards
     contexts = {}
     outs, diags = [], []
-    for i, device in enumerate(mesh):
+    for device, f_local in zip(mesh, shard_fields(f, mesh)):
         device = torch.device(device)
         key = str(device)
         if key not in contexts:
             contexts[key] = context_on(ctx, device)
-        sl = slice(i * width, (i + 1) * width)
-        f_local = {k: v[sl].to(device) for k, v in f.items()}
-        l_local = None if l_h2shield_field is None else \
-            l_h2shield_field[sl].to(device)
+        l_local = f_local.pop("l_h2shield_field", None)
         new_f, diag = _api.solve_prepared(contexts[key], us, pr, f_local,
                                           float(dt), imetal, l_local)
         outs.append(new_f)

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
 from grackle_tpu_torch.examples import (
     common,
@@ -86,11 +87,14 @@ def test_cooling_rate_example(tables, chem):
 
 def test_cooling_rate_main_writes_npz(tmp_path, monkeypatch):
     """The example as a program: PRIMORDIAL_CHEM and the device from the
-    environment, cooling_rate.npz in the working directory."""
+    environment, the tables from the synthetic data file get_data_file
+    writes, cooling_rate.npz in the working directory."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("PRIMORDIAL_CHEM", "0")
     monkeypatch.setenv("GRACKLE_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.delenv("GRACKLE_DATA_FILE", raising=False)
+    monkeypatch.setattr(common, "SYNTHETIC_FILE",
+                        str(tmp_path / ".synthetic_cloudy.h5"))
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     cooling_rate.main()
     with np.load(tmp_path / "cooling_rate.npz") as out:
@@ -142,19 +146,50 @@ def test_freefall_example_full(tables, metal):
 def test_device_and_tables_from_the_environment(monkeypatch, tmp_path):
     """GRACKLE_TPU_TORCH_DEVICE defaults to cuda (which raises without a
     card, never falling back); GRACKLE_DATA_FILE names a file to read,
-    else the tables are built in memory."""
+    else the synthetic data file is written and read."""
+    synthetic = tmp_path / "examples" / ".synthetic_cloudy.h5"
+    synthetic.parent.mkdir()
+    monkeypatch.setattr(common, "SYNTHETIC_FILE", str(synthetic))
     monkeypatch.delenv("GRACKLE_TPU_TORCH_DEVICE", raising=False)
     assert common.get_device() == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             cooling_rate.run(0, verbose=False)
     monkeypatch.setenv("GRACKLE_DATA_FILE", str(tmp_path / "missing.h5"))
-    assert sorted(common.get_data_file()) == ["Metals", "Primordial",
-                                              "UVBRates"]
+    assert common.get_data_file() == str(synthetic)
     path = tmp_path / "tables.h5"
     path.write_bytes(b"")
     monkeypatch.setenv("GRACKLE_DATA_FILE", str(path))
     assert common.get_data_file() == str(path)
+
+
+def test_get_data_file_writes_once(monkeypatch, tmp_path):
+    """Without GRACKLE_DATA_FILE, get_data_file writes the synthetic file
+    (the content of the tables in memory, read back by data/h5read.py)
+    the first time, leaves nothing else beside it, and returns the
+    existing file after that without writing it again."""
+    monkeypatch.delenv("GRACKLE_DATA_FILE", raising=False)
+    synthetic = tmp_path / ".synthetic_cloudy.h5"
+    monkeypatch.setattr(common, "SYNTHETIC_FILE", str(synthetic))
+    assert common.get_data_file() == str(synthetic)
+    assert os.listdir(tmp_path) == [".synthetic_cloudy.h5"]
+    assert chip_smoke.file_vs_groups(str(synthetic),
+                                     synthetic_cloudy_groups()) == 49
+    synthetic.write_bytes(b"not rewritten")
+    assert common.get_data_file() == str(synthetic)
+    assert synthetic.read_bytes() == b"not rewritten"
+
+
+def test_existing_data_file_wins(monkeypatch, tmp_path):
+    """An existing GRACKLE_DATA_FILE is returned, and no synthetic file is
+    written."""
+    path = tmp_path / "CloudyData_UVB=HM2012.h5"
+    path.write_bytes(b"")
+    monkeypatch.setenv("GRACKLE_DATA_FILE", str(path))
+    synthetic = tmp_path / "written" / ".synthetic_cloudy.h5"
+    monkeypatch.setattr(common, "SYNTHETIC_FILE", str(synthetic))
+    assert common.get_data_file() == str(path)
+    assert not synthetic.exists()
 
 
 def test_yt_example_needs_yt(monkeypatch):

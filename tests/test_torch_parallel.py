@@ -33,6 +33,7 @@ from grackle_tpu_torch.parallel.distributed import (
 from grackle_tpu_torch.parallel.sharding import (
     make_cell_mesh,
     pad_to_multiple,
+    shard_fields,
     solve_chemistry_sharded,
 )
 from tests import test_sharding as jtests
@@ -81,6 +82,53 @@ def test_make_cell_mesh_and_padding():
     assert n == 5
     assert torch.equal(padded["a"], torch.tensor([0., 1, 2, 3, 4, 0, 0, 0]))
     assert torch.equal(padded["b"], 2 * padded["a"])
+
+
+def test_shard_fields(monkeypatch):
+    """shard_fields cuts every field into len(mesh) equal contiguous
+    pieces, piece i on mesh[i], which concatenate to the input; a cell
+    count that is not a multiple of the mesh raises, as jax.device_put
+    with a NamedSharding does.  solve_chemistry_sharded hands each
+    shard's solve exactly those pieces of its padded fields, the
+    shielding length cut with them (chemistry 2, H2 self-shielding 1,
+    37 cells), and the result equals the unsharded solve."""
+    x = torch.arange(12.0, dtype=torch.float64)
+    pieces = shard_fields({"a": x, "b": -x}, make_cell_mesh(MESH))
+    assert len(pieces) == 4
+    for key, val in (("a", x), ("b", -x)):
+        assert [p[key].shape for p in pieces] == [(3,)] * 4
+        assert all(p[key].device == torch.device("cpu") for p in pieces)
+        assert torch.equal(torch.cat([p[key] for p in pieces]), val)
+    with pytest.raises(ValueError, match="10 cells"):
+        shard_fields({"a": torch.arange(10.0)}, MESH)
+
+    cd = make_chem(2, H2_self_shielding=1)
+    fields = make_fields(cd, 37)
+    l_h2 = np.linspace(1.0e18, 1.0e20, 37)  # cm
+    seen = []
+    solve = api.solve_prepared
+
+    def record(ctx, us, pr, f, dt, imetal, l_local):
+        seen.append((dict(f), l_local))
+        return solve(ctx, us, pr, f, dt, imetal, l_local)
+
+    monkeypatch.setattr(api, "solve_prepared", record)
+    shard_f, _ = solve_chemistry_sharded(cd.context, fields, DT, MESH,
+                                         l_h2shield_field=l_h2)
+    monkeypatch.setattr(api, "solve_prepared", solve)
+    prepped, _ = api._prep_fields(cd.context, fields)
+    padded, _ = pad_to_multiple(
+        dict(prepped, l=api.shield_length_tensor(cd.context, l_h2)), 4)
+    assert len(seen) == 4
+    for (f_local, l_local), piece in zip(seen, shard_fields(padded, MESH)):
+        assert sorted(f_local) == sorted(k for k in piece if k != "l")
+        for key, val in f_local.items():
+            assert torch.equal(val, piece[key]), key
+        assert torch.equal(l_local, piece["l"])
+    ref_f, _ = cd.solve_chemistry(fields, DT, l_h2shield=l_h2)
+    for name in FIELDS + ["H2I"]:
+        np.testing.assert_allclose(_np(shard_f[name]), _np(ref_f[name]),
+                                   rtol=1e-12, err_msg=name)
 
 
 @pytest.mark.parametrize("chem", [1, 3])
