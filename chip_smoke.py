@@ -5,23 +5,29 @@ Run from the root of a checkout on a machine with a CUDA device:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds
-it against its plain PyTorch twin on the card, holds the port against the
-stored answers, and drives the flagship ``solve_chemistry`` (12 species +
-dust + metal cooling + CMB floor, 1,048,576 cells) in f64 and f32 through
-the kernel, on the default compacted path and, in f64, the monolithic
-one.  Phases:
+It builds the port's CUDA kernels from the sources in the checkout, holds
+each against its plain PyTorch version on the card, holds the port against
+the stored answers, and drives the flagship ``solve_chemistry`` (12
+species + dust + metal cooling + CMB floor, 1,048,576 cells) in f64 and
+f32 through the network kernel, on the default compacted path and, in
+f64, the monolithic one; then captures ``functional.make_solve_fn`` into
+CUDA graphs, whose loops are conditional WHILE nodes, and replays them.
+Phases:
 
-0. device: the card's name and power limit (nvidia-smi);
-1. build: nvcc of csrc/network_update.cu, with its build seconds;
+0. device: the card's name and power limit (nvidia-smi), torch and its
+   CUDA, nvcc and the driver;
+1. build: nvcc of csrc/network_update.cu and csrc/graph_loop.cu, started
+   together, with their build seconds;
 2. kernel vs twin: the network-region inputs of the flagship state at the
    first and at a later subcycle, f64 and f32, at every cell and at the
    compacted path's tile and batch widths, then at the batch width plus
    one cell, with operands at odd element offsets and with the compacted
-   solve's packed carry; masks and counters must be identical and every
-   float output bit-identical (max rel 0); the median device time of 20
-   bare kernel launches and of 20 twin calls, each after an L2 flush,
-   beside the launch's bound (its bytes at 3.35 TB/s);
+   solve's packed carry, the kernel reading dt from a 0-d float64 tensor
+   on the card as every solve passes it; masks and counters must be
+   identical and every float output bit-identical (max rel 0); the
+   median device time of 20 bare kernel launches and of 20 twin calls,
+   each after an L2 flush, beside the launch's bound (its bytes at 3.35
+   TB/s);
 2b. the same check for every network configuration the
    kernel takes (primordial_chemistry 0-3, with and without dust, both
    deuterium updates, compensated_sums, radiative transfer with and
@@ -88,16 +94,38 @@ one.  Phases:
    new-style file, bit-identical to phase 4b; phase 4e's old-style
    rank-5 chemistry-1 solve from the written rank-5 file, bit-identical
    to phase 4e's from memory;
+4m. the solve as one device program: the loop-control kernel
+   (csrc/graph_loop.cu) against its plain predicate on masks up to the
+   flagship's width, toy WHILE nodes that must run exactly their
+   iterations, and its time a launch inside a WHILE node;
+   then make_solve_fn captured into a torch.cuda.CUDAGraph under
+   set_sync_debug_mode("error") and replayed, each replay bit-identical
+   to the eager solve (fields, cell_iterations, converged, subcycles):
+   the f64 flagship on the compacted path (after one eager warm-up of
+   the closure), the same graph with dt = DT_SECOND copied into its dt,
+   STEPS_GRAPH steps and an energy floor in one graph at N_STEPS_GRAPH
+   cells, then that graph and a one-step graph of another state replayed
+   at the same time on two streams (each bit-identical to its eager
+   solve), the f32 flagship, the monolithic f64 flagship, phase 4c's
+   chemistry-0 tabulated state and one cooling_cell step of one cell;
+   make_cooling_time_fn and make_dust_temperature_fn on the f64
+   flagship state, captured and replayed bit-identical to their eager
+   calls; each run's line gives capture, end-and-instantiate and replay
+   seconds (median of REPLAYS), node count (the graph's own and every
+   WHILE body's) and the graph's and its loop bodies' pool bytes; last,
+   the loop-body pools left once every graph is deleted (none);
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
    launch of the process, and with it phases 3 to 4e.
 
-Each phase prints one line.  Then one JSON line lists the kernels (the
-kernel's launches are the sum over the runs of phases 4 f64, 4d, 4e, 4f,
-4g, 4h, 4i, 4j, 4k and 4l, each counted from 0 just before it; a host
-program of 4i or 4k counts its own through
-GRACKLE_TPU_TORCH_LAUNCH_LOG), and the
+Each phase prints one line (4m one for each run).  Then one JSON line
+lists the kernels (the network kernel's launches are the sum over the
+runs of phases 4 f64, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k and 4l, each counted
+from 0 just before it, a host program of 4i or 4k counting its own
+through GRACKLE_TPU_TORCH_LAUNCH_LOG, and the subcycles of 4m's replays,
+read from the graphs' device counters; the loop kernel's are 4m's
+replays' launches, which it counts on the device), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -162,6 +190,21 @@ N_SHARDS = 4
 #: phase 4h: the steps of the cooling_cell example's stored trajectory
 #: (28,443 in all) run on the card, chosen from its measured step time
 COOLING_CELL_STEPS = 500
+#: phase 4m: the second timestep a graph replays with; the cells and
+#: steps of the graph that holds several steps and the caller's energy
+#: floor; replays timed per graph (median) and for the one-cell step
+DT_SECOND = 2.0e-4
+N_STEPS_GRAPH = 65536
+STEPS_GRAPH = 3
+ENERGY_FLOOR = 0.5
+REPLAYS = 3
+CELL_REPLAYS = 20
+#: phase 4m: the loop-control kernel's checks: mask widths (one at an odd
+#: byte offset) and (step, advance, cap) triples
+LOOP_WIDTHS = (1, 17, 4099, N_FLAGSHIP)
+LOOP_STEPS = ((0, 0, 10), (7, 8, 16), (8, 8, 16), (3, 1, 3), (0, 4, 2**62))
+#: phase 4m: WHILE iterations timed for the loop kernel's time a launch
+LOOP_TIMED = 1000
 #: phase 4i: the C examples, their success markers and extra cflags
 C_EXAMPLES = [
     ("c_example.c", "C_EXAMPLE_SUCCESS", ()),
@@ -775,6 +818,162 @@ def bit_differences(new_f, new_d, ref_f, ref_d):
     return differ
 
 
+def device_fields(fields, device="cuda"):
+    """A field dict as tensors on ``device``: the static inputs a captured
+    graph reads."""
+    import torch
+
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in fields.items()}
+
+
+def pool_bytes(pool_id):
+    """Bytes the caching allocator holds in the memory pool ``pool_id``
+    (its segments), or None where the snapshot does not name pools."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool_id))
+
+
+def capture_graph(fn, reps=REPLAYS):
+    """``fn()`` captured into a CUDA graph under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronisation
+    raises), instantiated and replayed ``reps`` times.  Returns (graph,
+    fn's outputs, stats): capture, instantiate and median replay seconds,
+    the graph's nodes (its own and every WHILE body's) and the bytes of
+    the graph's pool and of its loop bodies' pool.  The caller has run
+    ``fn`` eagerly first."""
+    import torch
+
+    from grackle_tpu_torch.ops import device_loop, graph_loop
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    device_loop.body_nodes = 0
+    pools = set(device_loop._pools)
+    with torch.cuda.graph(graph):
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t1 = time.time()
+    t2 = time.time()
+    graph.instantiate()
+    t3 = time.time()
+    nodes = graph_loop.graph_nodes(graph.raw_cuda_graph()) \
+        + device_loop.body_nodes
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.time()
+        graph.replay()
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+    body = [p for cid, p in device_loop._pools.items() if cid not in pools]
+    stats = dict(capture=t1 - t0, instantiate=t3 - t2 + (t2 - t1),
+                 replay=float(np.median(times)), nodes=nodes,
+                 pool=pool_bytes(graph.pool()),
+                 body_pool=(pool_bytes(body[0].id) if len(body) == 1
+                            else 0 if not body else None))
+    return graph, out, stats
+
+
+def graph_stats(stats):
+    def gib(b):
+        return "not measured" if b is None else f"{b / 2**30:.3f} GiB"
+
+    return (f"capture {stats['capture']:.3f} s, end and instantiate "
+            f"{stats['instantiate']:.3f} s, replay {stats['replay']:.4f} s "
+            f"(median of its replays), {stats['nodes']} nodes, graph pool "
+            f"{gib(stats['pool'])}, loop-body pool {gib(stats['body_pool'])}")
+
+
+def same_bits(a, b):
+    """Whether two float tensors hold the same bits (NaNs included)."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def concurrent_replays(pairs, inputs):
+    """Replay the graphs of ``pairs`` (graph, its field and diag outputs,
+    the eager solve's) at the same time, each on a stream of its own,
+    after poisoning every output that shares no memory with the
+    ``inputs`` (field dicts and tensors the graphs read); raises unless
+    each graph's outputs equal its eager solve's bit for bit.  Returns
+    the line."""
+    import torch
+
+    def storage(t):
+        return t.untyped_storage().data_ptr()
+
+    ptrs = set()
+    for item in inputs:
+        for t in (item.values() if isinstance(item, dict) else [item]):
+            ptrs.add(storage(t))
+    for _, out_f, out_d, _, _ in pairs:
+        for t in list(out_f.values()) + list(out_d.values()):
+            if storage(t) not in ptrs:
+                t.fill_(float("nan") if t.is_floating_point() else -1)
+    streams = [torch.cuda.Stream() for _ in pairs]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for stream, (graph, *_) in zip(streams, pairs):
+        with torch.cuda.stream(stream):
+            graph.replay()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    differ = []
+    for j, (_, out_f, out_d, ref_f, ref_d) in enumerate(pairs):
+        bad = bit_differences(out_f, out_d, ref_f, ref_d)
+        if not torch.equal(out_d["converged"], ref_d["converged"]):
+            bad.append("converged")
+        if int(out_d["subcycles"]) != int(ref_d["subcycles"]):
+            bad.append("subcycles")
+        differ += [f"graph {j}: {k}" for k in bad]
+    msg = (f"{len(pairs)} graphs replayed at once on {len(pairs)} streams: "
+           f"{wall:.4f} s together; "
+           + ("each bit-identical to its eager solve" if not differ
+              else f"DIFFER from their eager solves in {differ}"))
+    if differ:
+        raise AssertionError(msg)
+    return msg
+
+
+def released_pools(wait_s=2.0):
+    """Once every captured graph is deleted: release their loop-body
+    pools and return the line; raises if a pool is left after
+    ``wait_s`` seconds (the CUDA driver reports a destroyed graph on a
+    thread of its own)."""
+    import torch
+
+    from grackle_tpu_torch.ops import device_loop
+
+    held = len(device_loop._pools)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    while True:
+        device_loop.release_pools()
+        if not device_loop._pools or time.time() - t0 > wait_s:
+            break
+        time.sleep(0.05)
+    torch.cuda.empty_cache()
+    left = len(device_loop._pools)
+    msg = (f"loop-body pools: {held} held before the graphs' deletion was "
+           f"reported, {left} left after ({time.time() - t0:.3f} s)")
+    if left:
+        raise AssertionError(msg)
+    return msg
+
+
 #: phase 4g's one-rank NCCL group, run in a process of its own so that
 #: a hang ends at its time limit
 NCCL_CHILD = """
@@ -979,6 +1178,15 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
+        self.loop = dict(
+            name="graph_loop_cond", route="cuda",
+            source="grackle_tpu_torch/csrc/graph_loop.cu",
+            # no TPU kernel: it evaluates the condition of the loop that
+            # is lax.while_loop here in the JAX package
+            replaces="grackle_tpu/ops/solver.py:559",
+            launches=None, max_abs_err=None, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None,
+        )
         #: kernel launches of each main-path run, counted from 0 just
         #: before it: the kernel line's launches are their sum
         self.path_launches = {}
@@ -1003,24 +1211,56 @@ class Smoke:
         ).stdout.strip().splitlines()
         # the card's own line, exactly as nvidia-smi gives it
         print(out[0], flush=True)
-        return f"nvidia-smi: {out[0]}"
+        import torch
+
+        def run(cmd):
+            try:
+                return subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=60).stdout.strip()
+            except OSError as exc:
+                return f"({exc})"
+
+        from grackle_tpu_torch.ops.network_kernel import _nvcc
+
+        nvcc = run([_nvcc(), "--version"]).splitlines()
+        driver = run(["nvidia-smi", "--query-gpu=driver_version",
+                      "--format=csv,noheader"])
+        return (f"nvidia-smi: {out[0]}; torch {torch.__version__} (CUDA "
+                f"{torch.version.cuda}); nvcc: "
+                f"{nvcc[-1] if nvcc else 'not found'}; driver {driver}")
 
     def build(self):
-        from grackle_tpu_torch.ops import network_kernel
+        """Both kernels' libraries, one nvcc each, started together."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from grackle_tpu_torch.ops import graph_loop, network_kernel
+
+        def timed(mod):
+            t0 = time.time()
+            path = mod.build()
+            return path, time.time() - t0
 
         t0 = time.time()
-        path = network_kernel.build()
-        secs = time.time() - t0
+        with ThreadPoolExecutor(2) as pool:
+            builds = list(pool.map(timed, (network_kernel, graph_loop)))
+        wall = time.time() - t0
         network_kernel.load()
+        graph_loop.load()
+        (net, net_s), (loop, loop_s) = builds
         log = " ".join(network_kernel.build_log.split())
-        return (f"built {os.path.relpath(path, REPO)} in {secs:.2f} s; "
-                f"ptxas: {log or '(cached build)'}")
+        rt, drv = graph_loop.versions
+        return (f"built {os.path.relpath(net, REPO)} in {net_s:.2f} s and "
+                f"{os.path.relpath(loop, REPO)} in {loop_s:.2f} s, "
+                f"{wall:.2f} s together; the loop library's CUDA runtime "
+                f"{rt}, driver {drv}; network ptxas: "
+                f"{log or '(cached build)'}")
 
     def check_kernel(self, label, cfg, inp):
-        """Kernel vs twin on one set of captured network inputs; raises
-        unless masks and counters are identical and the worst relative
-        error is within KERNEL_RTOL.  Returns (message, kernel arguments,
-        worst relative error)."""
+        """Kernel vs twin on one set of captured network inputs (the
+        kernel reads dt from a 0-d float64 tensor on the card, as every
+        solve passes it); raises unless masks and counters are identical
+        and the worst relative error is within KERNEL_RTOL.  Returns
+        (message, kernel arguments, worst relative error)."""
         import torch
 
         from grackle_tpu_torch.ops import network as plain
@@ -1221,6 +1461,8 @@ class Smoke:
             self.path_launches["compacted"] = launches
             self.compact64 = (new_f, diag, wall)
             self.flagship64 = cd
+        else:
+            self.compact32 = (new_f, diag, wall)
         msg = (f"f{precision} compacted, {N_FLAGSHIP} cells dt "
                f"{DT_FLAGSHIP}: {wall:.3f} s, {N_FLAGSHIP / wall:.0f} "
                f"cells/s, n_iterations {n_it}, outer trips "
@@ -1233,6 +1475,393 @@ class Smoke:
             msg += (f"; energy vs f64: median rel {float(rel.median()):.2e}"
                     f" max {float(rel.max()):.2e}")
         return msg
+
+    def loop_kernel(self):
+        """The loop-control kernel (csrc/graph_loop.cu) against its plain
+        predicate on masks of LOOP_WIDTHS (one at an odd byte offset) and
+        the (step, advance, cap) triples of LOOP_STEPS; a toy WHILE over a
+        counter runs exactly the expected iterations for several masks,
+        caps and blocks; its time a launch inside a WHILE node (the node
+        re-run LOOP_TIMED times, the body the kernel alone) beside the
+        plain predicate's eager time and the bound.  Returns the
+        message; sets the loop kernel's line."""
+        import torch
+
+        from grackle_tpu_torch.ops import device_loop, graph_loop
+
+        device_loop.device_launches = None
+        rng = np.random.default_rng(5)
+        checked, worst = 0, 0
+        for n in LOOP_WIDTHS:
+            for density in (0.0, 1.0 / n, 0.5, 1.0):
+                raw = torch.from_numpy(rng.random(n + 1) < density).cuda()
+                for mask in (raw[:n], raw[1:]):
+                    for step0, advance, cap in LOOP_STEPS:
+                        step = torch.full((), step0, dtype=torch.int64,
+                                          device="cuda")
+                        value = torch.zeros((), dtype=torch.int32,
+                                            device="cuda")
+                        want_step, want = graph_loop.plain_predicate(
+                            mask, step.clone(), advance, cap)
+                        graph_loop.cond(mask, step, advance, cap,
+                                        value_out=value)
+                        err = max(abs(int(value) - int(want)),
+                                  abs(int(step) - int(want_step)))
+                        worst = max(worst, err)
+                        checked += 1
+        if worst:
+            raise AssertionError(f"loop kernel vs plain predicate: worst "
+                                 f"difference {worst} over {checked} cases")
+
+        toys = []
+        # (lanes set, cap, block, iterations): no trip, a cap that is and
+        # one that is not a multiple of the block, no cap (the counter
+        # limit of 5 read once every 3 steps)
+        for lanes, cap, block, want in ((0, 10, 4, 0), (1, 10, 4, 10),
+                                        (4099, 13, 8, 13), (4099, 16, 8, 16),
+                                        (1, 1, 1, 1), (7, None, 3, 6)):
+            mask = torch.zeros(4099, dtype=torch.bool, device="cuda")
+            mask[4099 - lanes:] = True
+            count0 = torch.zeros((), dtype=torch.int64, device="cuda")
+            limit = 5 if cap is None else None
+
+            def cond(c, limit=limit):
+                return c[1] & (c[0] < limit) if limit else c[1]
+
+            def body(c, _):
+                return c[0] + 1, c[1]
+
+            (eager, _), steps = device_loop.device_while(
+                cond, body, (count0, mask), cap, block)
+            graph, ((count, _), gsteps), _ = capture_graph(
+                lambda: device_loop.device_while(cond, body, (count0, mask),
+                                                 cap, block), reps=2)
+            toys.append(f"{lanes} lanes cap {cap} block {block}: "
+                        f"{int(count)} iterations")
+            if not int(count) == int(eager) == steps == int(gsteps) == want:
+                raise AssertionError(f"toy WHILE: {toys[-1]}, eager "
+                                     f"{int(eager)}, want {want}")
+            del graph
+
+        # the kernel's time a launch: a WHILE node whose body is the
+        # kernel alone, on the flagship-wide mask, LOOP_TIMED iterations a
+        # replay
+        mask = torch.ones(N_FLAGSHIP, dtype=torch.bool, device="cuda")
+        counter = torch.zeros((), dtype=torch.int64, device="cuda")
+
+        def timed_loop():
+            device = torch.device("cuda", torch.cuda.current_device())
+            counter.zero_()
+            handle = graph_loop.handle(device)
+            graph_loop.cond(mask, counter, 0, LOOP_TIMED, handle)
+            body = torch.cuda.Stream()
+            graph_loop.begin(device, body, handle)
+            with torch.cuda.stream(body):
+                graph_loop.cond(mask, counter, 1, LOOP_TIMED, handle)
+            graph_loop.end(body)
+            return counter
+
+        graph, _, stats = capture_graph(timed_loop)
+        del graph
+        if int(counter) != LOOP_TIMED:
+            raise AssertionError(f"timed WHILE ran {int(counter)} "
+                                 f"iterations, not {LOOP_TIMED}")
+        ms = stats["replay"] * 1e3 / LOOP_TIMED
+        step = torch.zeros((), dtype=torch.int64, device="cuda")
+        plain_ms = cuda_median_ms(
+            lambda: graph_loop.plain_predicate(mask, step, 1, LOOP_TIMED))
+        bound = (N_FLAGSHIP + 16) / HBM_BYTES_PER_S * 1e3
+        self.loop["max_abs_err"] = float(worst)
+        self.loop.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes")
+        return (f"{checked} masks and counters against the plain predicate "
+                f"(mask.any() & (step < cap)): identical; toy WHILE "
+                f"iterations: {'; '.join(toys)}; {ms * 1e3:.2f} us a launch "
+                f"inside a WHILE node on {N_FLAGSHIP} lanes (replay of "
+                f"{LOOP_TIMED} iterations / {LOOP_TIMED}), plain predicate "
+                f"{plain_ms * 1e3:.2f} us (CUDA events, L2 flushed), bound "
+                f"{bound * 1e3:.3f} us (bytes)")
+
+    def captured(self):
+        """Phase 4m: the solve as one device program.  The loop kernel
+        against its plain predicate (loop_kernel); then
+        functional.make_solve_fn and the caller's own operations captured
+        into a torch.cuda.CUDAGraph under set_sync_debug_mode("error")
+        and replayed, every replay bit-identical to the eager solve: the
+        f64 flagship on the compacted path (after one eager warm-up of
+        the closure with the 0-d dt), the same graph with dt = DT_SECOND
+        copied into its dt, STEPS_GRAPH steps and an energy floor in one
+        graph, the f32 flagship (the nested dust Newton loop), the
+        monolithic f64 flagship, 4c's chemistry-0 tabulated state (the
+        fixed point), and one cooling_cell step of one cell; the
+        STEPS_GRAPH-step graph and a one-step graph of another state
+        replayed at the same time on two streams; the cooling-time and
+        dust-temperature closures on the f64 flagship state.  The eager
+        references are phases 4, 4b and 4c; phase 4's runs of the same
+        configurations are the f32, monolithic and tabulated warm-ups.
+        Each run prints its own line; the last one counts the loop-body
+        pools left once every graph is deleted, which must be none."""
+        import torch
+
+        import grackle_tpu_torch.functional as gfn
+        from grackle_tpu_torch import chemistry_data, setup_fluid_container
+        from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+        from grackle_tpu_torch.ops import device_loop, graph_loop
+        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+        from grackle_tpu_torch.utilities.physical_constants import (
+            cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
+
+        for attr, phase in (("compact64", "4 f64"), ("compact32", "4 f32"),
+                            ("mono64", "4b"), ("tabulated64", "4c f64")):
+            if getattr(self, attr, None) is None:
+                raise AssertionError(f"phase {phase} did not complete")
+        parts = [self.loop_kernel()]
+        print(f"[4m loop kernel] {parts[0]}", flush=True)
+
+        launches = torch.zeros((), dtype=torch.int64, device="cuda")
+        replay_subcycles = 0
+
+        def run(label, call, ref_f, ref_d, reps=REPLAYS, eager_s=None):
+            """Capture call(), replay it reps times and hold the outputs
+            to the eager solve's; print the run's line."""
+            nonlocal replay_subcycles
+            graph, (out_f, out_d), stats = capture_graph(call, reps)
+            differ = bit_differences(out_f, out_d, ref_f, ref_d)
+            if not torch.equal(out_d["converged"], ref_d["converged"]):
+                differ.append("converged")
+            subs = int(out_d["subcycles"])
+            if subs != int(ref_d["subcycles"]):
+                differ.append(f"subcycles {subs} (eager "
+                              f"{int(ref_d['subcycles'])})")
+            replay_subcycles += subs * reps
+            msg = (f"{label}: {graph_stats(stats)}; eager "
+                   + (f"{eager_s:.4f} s" if eager_s is not None
+                      else "not timed")
+                   + f"; device subcycle counter {subs}, trips "
+                   f"{int(out_d['trips'])}; "
+                   + ("bit-identical to the eager solve" if not differ
+                      else f"DIFFERS from the eager solve in {differ}"))
+            print(f"[4m {label}] {msg}", flush=True)
+            if differ:
+                raise AssertionError(msg)
+            parts.append(msg)
+            return graph, out_f, out_d
+
+        def run_field(label, call, ref, eager_s):
+            """run() for a derived-field closure: one [N] tensor."""
+            graph, out, stats = capture_graph(call)
+            same = same_bits(out, ref)
+            msg = (f"{label}: {graph_stats(stats)}; eager {eager_s:.4f} s; "
+                   + ("bit-identical to the eager call" if same
+                      else "DIFFERS from the eager call"))
+            print(f"[4m {label}] {msg}", flush=True)
+            if not same:
+                raise AssertionError(msg)
+            parts.append(msg)
+
+        device_loop.device_launches = launches
+        network_update_cuda.launches = 0
+        graph_loop.cond.launches = 0
+        try:
+            # the f64 flagship on the compacted path, then a second dt
+            comp_f, comp_d, comp_wall = self.compact64
+            cd = self.flagship64
+            solve = gfn.make_solve_fn(cd)
+            host_fields = flagship_fields(cd, N_FLAGSHIP)
+            fields = device_fields(host_fields)
+            dt = torch.tensor(DT_FLAGSHIP, dtype=torch.float64,
+                              device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            warm_f, warm_d = solve(fields, dt)
+            torch.cuda.synchronize()
+            warm_s = time.time() - t0
+            if bit_differences(warm_f, warm_d, comp_f, comp_d):
+                raise AssertionError("the closure's eager solve with a 0-d "
+                                     "dt differs from phase 4's")
+            del warm_f, warm_d
+            graph, out_f, out_d = run(
+                f"f64 compacted {N_FLAGSHIP} cells dt {DT_FLAGSHIP}",
+                lambda: solve(fields, dt), comp_f, comp_d,
+                eager_s=warm_s)
+            dt.fill_(DT_SECOND)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            graph.replay()
+            torch.cuda.synchronize()
+            second_s = time.time() - t0
+            t0 = time.time()
+            ref_f, ref_d = cd.solve_chemistry(host_fields, DT_SECOND)
+            torch.cuda.synchronize()
+            eager_s = time.time() - t0
+            differ = bit_differences(out_f, out_d, ref_f, ref_d)
+            if int(out_d["subcycles"]) != ref_d["subcycles"]:
+                differ.append("subcycles")
+            replay_subcycles += int(out_d["subcycles"])
+            msg = (f"same graph, dt {DT_SECOND} copied into its dt: replay "
+                   f"{second_s:.4f} s, eager {eager_s:.4f} s, "
+                   f"{int(out_d['subcycles'])} subcycles; "
+                   + ("bit-identical to the eager solve" if not differ
+                      else f"DIFFERS in {differ}"))
+            print(f"[4m second dt] {msg}", flush=True)
+            if differ:
+                raise AssertionError(msg)
+            parts.append(msg)
+            dt.fill_(DT_FLAGSHIP)
+            del graph, out_f, out_d, ref_f, ref_d
+
+            # the derived-field closures on the same state (the dust
+            # temperature's Newton and bisection loops)
+            for name in ("cooling_time", "dust_temperature"):
+                fn = getattr(gfn, f"make_{name}_fn")(cd)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ref = fn(fields)
+                torch.cuda.synchronize()
+                run_field(f"make_{name}_fn {N_FLAGSHIP} cells",
+                          lambda: fn(fields), ref, time.time() - t0)
+            del fn, ref, fields
+            torch.cuda.empty_cache()
+
+            # several steps and the caller's energy floor in one graph
+            cd3 = flagship_chem(64, "cuda")
+            solve3 = gfn.make_solve_fn(cd3)
+            fields3 = device_fields(flagship_fields(cd3, N_STEPS_GRAPH))
+            dt3 = torch.tensor(DT_FLAGSHIP, dtype=torch.float64,
+                               device="cuda")
+
+            def steps():
+                f, total = fields3, 0
+                for _ in range(STEPS_GRAPH):
+                    new, diag = solve3(f, dt3)
+                    floor = ENERGY_FLOOR * f["energy"]
+                    f = dict(new, energy=torch.maximum(new["energy"],
+                                                       floor))
+                    total = total + diag["subcycles"]
+                # the last step's diagnostics, every step's subcycles
+                return f, dict(diag, subcycles=total)
+
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ref_f, ref_d = steps()
+            torch.cuda.synchronize()
+            eager_s = time.time() - t0
+            graph, out_f, out_d = run(
+                f"{STEPS_GRAPH} steps and an energy floor, "
+                f"{N_STEPS_GRAPH} cells", steps, ref_f, ref_d,
+                eager_s=eager_s)
+
+            # a graph of one step of another state, then both graphs
+            # replayed at the same time on two streams: each graph's loop
+            # bodies have a pool of their own
+            fields3b = device_fields(flagship_fields(cd3, N_STEPS_GRAPH,
+                                                     seed=12))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ref_fb, ref_db = solve3(fields3b, dt3)
+            torch.cuda.synchronize()
+            graph_b, out_fb, out_db = run(
+                f"one step of another state, {N_STEPS_GRAPH} cells",
+                lambda: solve3(fields3b, dt3), ref_fb, ref_db,
+                eager_s=time.time() - t0)
+            pairs = ((graph, out_f, out_d, ref_f, ref_d),
+                     (graph_b, out_fb, out_db, ref_fb, ref_db))
+            msg = concurrent_replays(pairs, (fields3, fields3b, dt3))
+            replay_subcycles += int(out_d["subcycles"]) \
+                + int(out_db["subcycles"])
+            print(f"[4m two streams] {msg}", flush=True)
+            parts.append(msg)
+            del graph, graph_b, pairs, out_f, out_d, out_fb, out_db
+            del ref_f, ref_d, ref_fb, ref_db, fields3, fields3b
+
+            # the f32 flagship (the nested dust Newton loop), the
+            # monolithic f64 flagship, the subcycled tabulated state
+            cd32 = flagship_chem(32, "cuda")
+            f32_f, f32_d, f32_wall = self.compact32
+            fields = device_fields(flagship_fields(cd32, N_FLAGSHIP))
+            solve32 = gfn.make_solve_fn(cd32)
+            graph, _, _ = run(f"f32 compacted {N_FLAGSHIP} cells",
+                              lambda: solve32(fields, dt), f32_f, f32_d,
+                              eager_s=f32_wall)
+            del graph, fields
+            torch.cuda.empty_cache()
+
+            mono_f, mono_d = self.mono64
+            cdm = flagship_chem(64, "cuda", solver_compaction=0)
+            fields = device_fields(flagship_fields(cdm, N_FLAGSHIP))
+            solvem = gfn.make_solve_fn(cdm)
+            graph, _, _ = run(f"f64 monolithic {N_FLAGSHIP} cells",
+                              lambda: solvem(fields, dt), mono_f, mono_d,
+                              eager_s=getattr(self, "mono64_wall", None))
+            del graph, fields
+            torch.cuda.empty_cache()
+
+            tab_fields, tab_f, tab_d, tab_wall = self.tabulated64
+            cdt = answer_chem("cuda", primordial_chemistry=0,
+                              metal_cooling=1, exact_cooling=0)
+            fields = device_fields(tab_fields)
+            solvet = gfn.make_solve_fn(cdt)
+            dt_tab = torch.tensor(DT_EXACT, dtype=torch.float64,
+                                  device="cuda")
+            graph, _, _ = run(f"chemistry 0 tabulated {N_FLAGSHIP} cells "
+                              f"dt {DT_EXACT}",
+                              lambda: solvet(fields, dt_tab), tab_f, tab_d,
+                              eager_s=tab_wall)
+            del graph, fields
+            torch.cuda.empty_cache()
+
+            # one cooling_cell step of one cell
+            cc = chemistry_data()
+            cc.use_grackle = 1
+            cc.with_radiative_cooling = 1
+            cc.primordial_chemistry = 0
+            cc.metal_cooling = 1
+            cc.UVbackground = 1
+            cc.comoving_coordinates = 0
+            cc.a_units = 1.0
+            cc.a_value = 1.0
+            cc.density_units = mass_hydrogen_cgs
+            cc.length_units = cm_per_mpc
+            cc.time_units = sec_per_Myr
+            fc = setup_fluid_container(
+                cc, density=0.1 * mass_hydrogen_cgs,
+                temperature=np.array([1.0e6]), converge=False,
+                verbose=False, device="cuda",
+                cloudy_data=synthetic_cloudy_groups())
+            fields = device_fields(fc._solver_fields())
+            # the example's first step: 1% of the cooling time
+            dt_cell = torch.tensor(
+                0.01 * abs(float(cc.calculate_cooling_time(fields)[0])),
+                dtype=torch.float64, device="cuda")
+            solvec = gfn.make_solve_fn(cc)
+            times = []
+            for _ in range(REPLAYS):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ref_f, ref_d = solvec(fields, dt_cell)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+            graph, _, _ = run("one cooling_cell step, 1 cell",
+                              lambda: solvec(fields, dt_cell), ref_f, ref_d,
+                              reps=CELL_REPLAYS,
+                              eager_s=float(np.median(times)))
+            del graph
+        finally:
+            device_loop.device_launches = None
+        torch.cuda.synchronize()
+        parts.append(released_pools())
+        print(f"[4m pools] {parts[-1]}", flush=True)
+        loop_launches = int(launches)
+        if not replay_subcycles or not loop_launches:
+            raise AssertionError(f"the replays ran {replay_subcycles} "
+                                 f"subcycles and {loop_launches} loop "
+                                 f"kernel launches")
+        self.path_launches["captured_replays"] = replay_subcycles
+        self.loop["launches"] = loop_launches
+        parts.append(f"replays: {replay_subcycles} network kernel launches "
+                     f"(the device subcycle counters) and {loop_launches} "
+                     f"loop kernel launches (counted on the device)")
+        return "; ".join(parts)
 
     def profiled_kernel(self):
         """The kernel line's launch (f64 flagship inputs at subcycle
@@ -1286,6 +1915,7 @@ class Smoke:
             raise AssertionError(f"monolithic vs compacted differ in "
                                  f"{differ}")
         self.mono64 = (new_f, diag)
+        self.mono64_wall = wall
         return (f"f64 monolithic {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, {launches} launches) against compacted "
                 f"{comp_wall:.3f} s ({comp_d['subcycles']} launches, "
@@ -1336,6 +1966,8 @@ class Smoke:
         sub_f, sub_d = sub.solve_chemistry(fields, DT_EXACT)
         torch.cuda.synchronize()
         sub_wall = time.time() - t0
+        if precision == 64:
+            self.tabulated64 = (fields, sub_f, sub_d, sub_wall)
         if not bool(sub_d["converged"].all()):
             raise AssertionError("subcycled: a cell hit max_iterations")
         rel = ((energy - sub_f["energy"]).abs()
@@ -1989,6 +2621,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smoke = Smoke()
+    # ``--only 0,1,4,4m`` runs the phases whose labels start with those
+    # names (a development aid; the smoke test is the run of all of them)
+    only = None
+    if "--only" in sys.argv[1:]:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+        run_phase = smoke.phase
+        smoke.phase = lambda label, fn: (
+            run_phase(label, fn) if label.split()[0] in only else None)
     t0 = time.time()
     smoke.phase("0 device", smoke.device)
     smoke.phase("1 build", smoke.build)
@@ -2011,12 +2651,13 @@ def main() -> int:
     smoke.phase("4j data files", smoke.data_files)
     smoke.phase("4k host programs", smoke.hosts)
     smoke.phase("4l data files written", smoke.data_written)
+    smoke.phase("4m captured CUDA graphs", smoke.captured)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())
     print(f"[launches] {smoke.path_launches}", flush=True)
-    print(json.dumps({"kernels": [smoke.kernel]}), flush=True)
-    if not smoke.ok:
+    print(json.dumps({"kernels": [smoke.kernel, smoke.loop]}), flush=True)
+    if not smoke.ok or only is not None:
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

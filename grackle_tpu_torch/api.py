@@ -42,7 +42,7 @@ from .data.uvb import load_uvb_table, update_uvb_rates, uvb_redshift_bounds
 from .ops import derived as _derived
 from .ops import exact_cool as _exact
 from .ops import solver as _solver
-from .ops.common import (make_unit_scalars, photo_rates_from_tables,
+from .ops.common import (as_dt, make_unit_scalars, photo_rates_from_tables,
                          solver_dtype)
 from .rates.tables import build_rate_tables
 from .units import CodeUnits
@@ -239,8 +239,10 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     # unit scalars and UVB photo rates are per-call host work, as the
     # reference computes them in C per call
     pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
-    new_f, diagnostics = solve_prepared(ctx, us, pr, f, float(dt), imetal,
-                                        l_h2)
+    new_f, diagnostics = solve_prepared(ctx, us, pr, f, dt, imetal, l_h2)
+    # the stateful call reports its counts as Python ints
+    for key in ("subcycles", "trips"):
+        diagnostics[key] = int(diagnostics[key])
     if cfg.exit_after_iterations_exceeded:
         # analogue of the reference's hard failure when the subcycle cap
         # is hit (solve_rate_cool_g.F:823-843 honoring exititmax)
@@ -260,12 +262,16 @@ def shield_length_tensor(ctx: GrackleContext, l_h2shield):
         device=ctx.device, dtype=solver_dtype(ctx.config)).reshape(-1)
 
 
-def solve_prepared(ctx: GrackleContext, us, pr, f, dt: float,
-                   imetal: bool, l_h2shield=None):
+def solve_prepared(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
+                   l_h2shield=None):
     """The solve on prepared tensors ``f`` with this call's unit scalars
     and photo rates, on the path :func:`solve_path` picks: the body
-    shared by :func:`solve_chemistry` and functional.make_solve_fn."""
+    shared by :func:`solve_chemistry` and functional.make_solve_fn.
+    ``dt`` is a float or a 0-d tensor on the fields' device
+    (ops/common.as_dt); ``subcycles`` and ``trips`` are Python ints when
+    eager and 0-d tensors inside a CUDA-graph capture."""
     cfg = ctx.config
+    dt = as_dt(dt, f["density"])
     n = f["density"].shape[0] if f["density"].ndim == 1 else 0
     path = solve_path(cfg, n)
     if path == "exact":
@@ -289,12 +295,13 @@ def solve_prepared(ctx: GrackleContext, us, pr, f, dt: float,
                            "trips": result.trips}
 
 
-def solve_exact(ctx: GrackleContext, us, pr, f, dt: float, imetal: bool):
+def solve_exact(ctx: GrackleContext, us, pr, f, dt, imetal: bool):
     """The 'exact' path: exact-integration tabulated cooling
     (ops/exact_cool.py), one closed-form pass instead of the subcycle
     loop.  ``f`` holds prepared tensors; only the energy is replaced.
     Diagnostics as the JAX package gives them, plus zero subcycles and
-    trips: no network launch runs."""
+    trips: no network launch runs.  ``dt`` as :func:`solve_prepared`
+    takes it."""
     cfg = ctx.config
     fe = f
     if ctx.units.comoving_coordinates:

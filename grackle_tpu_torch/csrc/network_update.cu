@@ -51,9 +51,12 @@
 // ops/common.py div_host), and the results equal the twin's bit for bit
 // in f32 and f64.  The compensated two-sum needs exactly that: IEEE adds
 // that the compiler neither contracts nor reassociates.
-// Scalars the twin combines in host double precision (0.5*dt,
-// tolerance*dt, Gamma-1, 1.01*TemperatureStart) arrive precomputed as
-// doubles and are rounded once to T, as PyTorch rounds a Python float.
+// Scalars the twin combines in host double precision (Gamma-1,
+// 1.01*TemperatureStart) arrive precomputed as doubles and are rounded
+// once to T, as PyTorch rounds a Python float.  The timestep is a double
+// in device memory (the solvers' 0-d float64 tensor, so that a CUDA graph
+// replays with a new dt); 0.5*dt and tolerance*dt are double products
+// here, as the twin forms them, and rounded once to T.
 //
 // Build (ops/network_kernel.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -123,9 +126,8 @@ struct NetworkArgs {
   int compensated;            // compensated_sums
   int rt;                     // use_radiative_transfer
   int rt_hydrogen_only;       // radiative_transfer_hydrogen_only
-  double dt;                  // full-step timestep
-  double half_dt;             // 0.5 * dt
-  double tol_dt;              // tolerance * dt
+  const void* dt;             // full-step timestep: a double in device memory
+  double tolerance;           // dtype_tolerance (retire at tolerance*dt)
   double tiny8;               // dtype floor (ops/common.py)
   double huge8;               // dtype ceiling (ops/common.py)
   double dom, chunit;         // unit scalars
@@ -179,7 +181,7 @@ __device__ __forceinline__ void two_sum(T hi, T lo, T x, T& hi_out,
 
 template <typename T>
 __device__ __forceinline__ void network_cell(const NetworkArgs& a,
-                                             long long i) {
+                                             long long i, double dt64) {
   const int isp = a.ispecies;
   const bool dust = a.anydust != 0;
   const bool comp = a.compensated != 0;
@@ -188,7 +190,7 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
   const bool rt_all = irt && a.rt_hydrogen_only == 0;
   const T tiny = T(1.0e-20);
   const T tiny8 = T(a.tiny8);
-  const T dt = T(a.dt);
+  const T dt = T(dt64);
   const T dom = T(a.dom);
 
   const bool itmask = ld<uint8_t>(a, i, I_itmask) != 0;
@@ -361,7 +363,7 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
       HIdot = tmin(tabs(HIdot), tabs(ld<T>(a, i, I_HIdot_prev)));
     }
     dtit = tmin(tmin(tabs(acc * de / dedot), tabs(acc * HI / HIdot)),
-                tmin(t_resid, T(a.half_dt)));
+                tmin(t_resid, T(0.5 * dt64)));
     if (isp > 1) dtit = tmin(dtit, ld<T>(a, i, I_h2_limit));
   }
 
@@ -599,11 +601,12 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
     const bool done = (t_hi + t_lo) >= dt;
     ttot_new = done ? dt : t_hi;
     ttot_lo_new = done ? T(0.0) : t_lo;
-    unfinished = tabs((dt - ttot_new) - ttot_lo_new) >= T(a.tol_dt);
+    unfinished =
+        tabs((dt - ttot_new) - ttot_lo_new) >= T(a.tolerance * dt64);
     st<T>(a, i, O_ttot_lo, ttot_lo_new);
   } else {
     ttot_new = tmin(ttot + (itmask ? dtit : dt), dt);
-    unfinished = tabs(dt - ttot_new) >= T(a.tol_dt);
+    unfinished = tabs(dt - ttot_new) >= T(a.tolerance * dt64);
   }
   const int it_new = it + (itmask ? 1 : 0);
   const bool hit_cap = it_new >= a.max_iterations;
@@ -623,9 +626,10 @@ template <typename T>
 __global__ void __launch_bounds__(TILE, MIN_CTAS_PER_SM<T>)
 network_update_kernel(const __grid_constant__ NetworkArgs a) {
   const long long stride = (long long)gridDim.x * TILE;
+  const double dt64 = __ldg(static_cast<const double*>(a.dt));
   for (long long i = (long long)blockIdx.x * TILE + threadIdx.x; i < a.n;
        i += stride) {
-    network_cell<T>(a, i);
+    network_cell<T>(a, i, dt64);
   }
 }
 

@@ -19,14 +19,45 @@ tables, the unit system, and the redshift-dependent UV-background photo
 rates.  For cosmological runs rebuild the closure when ``a_value``
 changes; for constant-a runs nothing ever needs rebuilding.
 
-What holds, in place of the JAX package's "trace-safe": a call does no
-host work beyond the loops' own checks (the subcycle loop reads "any
-cell active" every 8 subcycles; the dust-temperature Newton solve and
-the tabulated-mode temperature fixed point read their convergence once
-a block of steps; the exact step reads nothing).  Each closure gives,
-for the same context, results
-identical to ``ChemistryData.solve_chemistry`` and ``calculate_*`` bit for
-bit: they run the same functions on the same unit scalars and photo rates.
+What holds, as the JAX package's closures are "trace-safe": a call reads
+nothing on the host but its loops' exit checks, and inside a CUDA-graph
+capture not even those.  The solve's loops (the subcycle loop, the
+compacted solve's trips, the dust-temperature Newton and bisection
+solves, the tabulated-mode temperature fixed point) go through
+``ops/device_loop.device_while``: called eagerly, each reads "some cell
+active" once a block of steps; called while the current stream captures
+a ``torch.cuda.CUDAGraph``, each becomes a conditional WHILE node whose
+condition a kernel sets on the device.  ``dt`` may be a 0-d tensor on
+the fields' device, so one graph serves every timestep: a hydro code
+captures its whole step, the chemistry in it, and replays it.
+
+The contract: run the step once eagerly first (that call builds the
+kernels and sets up CUDA state), then capture it; a replay reads its
+inputs from the tensors the capture saw and writes the same output
+tensors, bit-identical to an eager call on the same inputs.  Each
+graph's loop bodies allocate from a memory pool of its own, held until
+the graph is destroyed, so graphs may replay at the same time on
+different streams.  The derived-field closures come under the same
+contract.
+
+    solve = gfn.make_solve_fn(chem)
+    dt = torch.tensor(1.0e-4, dtype=torch.float64, device="cuda")
+    fields = {k: v.cuda() for k, v in fields.items()}   # static inputs
+    solve(fields, dt)                                    # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new_fields, diag = solve(fields, dt)
+        floor = torch.minimum(new_fields["energy"], fields["energy"])
+    for step in range(n_steps):
+        graph.replay()                   # new_fields, diag, floor
+        for k in fields:                 # the next step's input
+            fields[k].copy_(new_fields[k])
+        dt.fill_(next_dt)                # or any device-side update
+
+Each closure gives, for the same context, results identical to
+``ChemistryData.solve_chemistry`` and ``calculate_*`` bit for bit: they
+run the same functions on the same unit scalars and photo rates.  Every
+``diag`` entry of the solve closure is a tensor.
 The derived-field closures are differentiable with ``torch.autograd``
 with respect to the field tensors passed in (tests/test_torch_functional).
 
@@ -44,6 +75,8 @@ in the JAX package:
 """
 
 from __future__ import annotations
+
+import torch
 
 from .api import (
     GrackleContext,
@@ -80,6 +113,11 @@ def _resolve_ctx(chem) -> GrackleContext:
 def make_solve_fn(chem, grid_dx: float = 0.0):
     """Build ``solve(fields, dt, l_h2shield=None) -> (fields, diag)``.
 
+    ``dt`` is a float or a 0-d tensor on the fields' device; the solve
+    reads it in float64 either way.  ``diag`` holds tensors:
+    n_iterations, converged, cell_iterations, subcycles (the network
+    launches) and trips (the compacted solve's batches).
+
     Path selection (exact-integration cooling / converged-cell
     compaction / monolithic subcycling) is the stateful API's
     (api.solve_path), so results are identical to
@@ -100,7 +138,12 @@ def make_solve_fn(chem, grid_dx: float = 0.0):
             )
         l_h2 = (None if l_h2shield is None
                 else shield_length_tensor(ctx, l_h2shield))
-        return solve_prepared(ctx, us, pr, f, float(dt), imetal, l_h2)
+        new_f, diag = solve_prepared(ctx, us, pr, f, dt, imetal, l_h2)
+        device = f["density"].device
+        return new_f, {
+            key: val if isinstance(val, torch.Tensor) else
+            torch.full((), val, dtype=torch.int64, device=device)
+            for key, val in diag.items()}
 
     return solve
 

@@ -22,6 +22,23 @@ def solver_dtype(cfg):
     return torch.float64 if cfg.precision == 64 else torch.float32
 
 
+def as_dt(dt, like):
+    """``dt`` as the solvers take it: a 0-d float64 tensor on ``like``'s
+    device.  A host float is filled in on the device (no copy, so a
+    CUDA-graph capture may record it, its value fixed); a tensor must be
+    0-d and real, on that device, and a graph that captured the solve
+    replays with whatever it then holds.  Every entry point of the
+    solvers converts here, so below them ``dt`` has one form."""
+    if not isinstance(dt, torch.Tensor):
+        return torch.full((), float(dt), dtype=torch.float64,
+                          device=like.device)
+    if dt.shape != () or dt.device != like.device or dt.is_complex():
+        raise ValueError(f"dt: want a float or a 0-d real tensor on "
+                         f"{like.device}, got {dt.dtype} {tuple(dt.shape)} "
+                         f"on {dt.device}")
+    return dt.to(torch.float64)
+
+
 def dtype_tiny8(dtype):
     """The reference's tiny8 = 1e-40 double floor
     (grackle_fortran_types.def); 1e-37 for float32 (the smallest normal

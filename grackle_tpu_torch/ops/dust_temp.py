@@ -4,12 +4,12 @@ grackle_tpu/ops/dust_temp.py).
 Batched rebuild of the reference's per-cell Newton-with-numeric-derivative
 iteration plus bisection fallback (grackle: src/clib/calc_tdust_1d_g.F:6-471).
 Control-flow divergence becomes masked dataflow: all cells advance together
-under boolean masks.  Both loops exit early once no cell is active; the
-host reads the "any cell active" flag once per block of ``BLOCK`` masked
-steps rather than after every step.  This is bit-identical to checking
-after every step: each update is masked, steps after a cell converges
-leave it untouched, and the ``it < ITMAX`` guard inside the step keeps the
-iteration cap exact when a block runs past it.
+under boolean masks.  Both loops exit early once no cell is active; they
+run through ``ops/device_loop.device_while``, which reads the "any cell
+active" flag once per block of ``BLOCK`` masked steps (on the host when
+eager, on the device inside a CUDA-graph capture).  This is bit-identical
+to checking after every step: each update is masked, and steps after a
+cell converges leave it untouched.
 
 All quantities here are CGS (the reference keeps the dust solve in CGS;
 see rate_functions.c:1328-1336).
@@ -21,6 +21,7 @@ import torch
 
 from ..constants import sigma_sb, tiny
 from .common import ipow
+from .device_loop import device_while
 
 T_SUBL = 1.5e3  # grain sublimation temperature (calc_tdust_1d_g.F:58)
 RADF = 4.0 * sigma_sb
@@ -32,7 +33,7 @@ MINPERT = 1.0e-10
 ITMAX = 50
 BI_ITMAX = 30
 PERT_I = 1.0e-3
-#: masked steps per host check of the loops' exit condition
+#: masked steps per check of the loops' exit condition
 BLOCK = 4
 
 
@@ -57,17 +58,6 @@ def calc_gr_balance(tdust, tgas, kgr, trad4, gasgr, gamma_isrf, nh):
         + RADF * kgr * (trad4 - ipow(tdust, 4))
         + gasgr * nh * (tgas - tdust)
     )
-
-
-def _blocked(cond, body, carry, itmax):
-    """Run ``body`` in blocks of BLOCK steps while ``cond(carry)`` holds
-    (one host read per block), at most ``itmax`` steps in all."""
-    it = 0
-    while it < itmax and cond(carry):
-        for _ in range(BLOCK):
-            carry = body(carry, it)
-            it += 1
-    return carry
 
 
 def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
@@ -109,11 +99,8 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
     nm_mask = itmask & ~done_cold & ~sub_mask
     tdust = torch.where(done_cold, torch.full_like(tdust0, trad), tdust0)
 
-    def newton_body(carry, it):
+    def newton_body(carry, _):
         tdust, pert, nm_mask, bi_mask = carry
-        # iteration-cap guard: steps at it >= ITMAX are no-ops
-        if it >= ITMAX:
-            return carry
         tdplus = torch.clamp((1.0 + pert) * tdust, min=1.0e-3)
         kgr = calc_kappa_gr(tdust)
         kgrplus = calc_kappa_gr(tdplus)
@@ -139,9 +126,9 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
         return tdust, pert, nm_mask, bi_mask
 
     bi_mask = itmask & ~done_cold
-    tdust, _, _, bi_mask = _blocked(
-        lambda c: bool(c[2].any()), newton_body,
-        (tdust, pert0, nm_mask, bi_mask), ITMAX,
+    (tdust, _, _, bi_mask), _ = device_while(
+        lambda c: c[2], newton_body, (tdust, pert0, nm_mask, bi_mask),
+        ITMAX, BLOCK,
     )
 
     # Bisection fallback (calc_tdust_1d_g.F:209-261): cells that never
@@ -169,10 +156,13 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
 
     def bi_body(carry, it):
         t_low, t_high, bi_mask = carry
-        if it >= BI_ITMAX:
-            return carry
         t_mid = 0.5 * (t_low + t_high)
-        if it == 0:
+        # the first step clamps at T_SUBL; inside a capture the step index
+        # is a device tensor and the clamp a select
+        if isinstance(it, torch.Tensor):
+            t_mid = torch.where(it == 0, torch.clamp(t_mid, max=T_SUBL),
+                                t_mid)
+        elif it == 0:
             t_mid = torch.clamp(t_mid, max=T_SUBL)
         kgr = calc_kappa_gr(t_mid)
         sol = calc_gr_balance(t_mid, tgas, kgr, trad4, gasgr,
@@ -184,9 +174,8 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
         bi_mask = bi_mask & ~conv
         return t_low_new, t_high_new, bi_mask
 
-    t_low, _, _ = _blocked(
-        lambda c: bool(c[2].any()), bi_body,
-        (t_low, t_high, bi_mask), BI_ITMAX,
+    (t_low, _, _), _ = device_while(
+        lambda c: c[2], bi_body, (t_low, t_high, bi_mask), BI_ITMAX, BLOCK,
     )
 
     return torch.where(itmask, t_low, tdust)

@@ -35,7 +35,7 @@ import math
 import torch
 
 from . import interp
-from .common import dtype_tiny8
+from .common import as_dt, dtype_tiny8
 from .tabulated_temp import MU_METAL
 
 
@@ -142,11 +142,13 @@ def _at(x, idx):
     return torch.gather(x, 1, idx[:, None])[:, 0]
 
 
-def exact_cool_step(cfg, cloudy_prim, cloudy_met, pr, us, f, dt: float,
+def exact_cool_step(cfg, cloudy_prim, cloudy_met, pr, us, f, dt,
                     imetal: bool):
     """Advance the internal energy by dt with the exact-integration
-    scheme.  Returns the new energy tensor."""
+    scheme.  ``dt`` is a host float or a 0-d tensor on the fields'
+    device (ops/common.as_dt).  Returns the new energy tensor."""
     d = f["density"]
+    dt = as_dt(dt, d)
     e0 = f["energy"]
     tiny8 = dtype_tiny8(d.dtype)
 

@@ -70,6 +70,13 @@ def interpolate_3d(x1, x2, x3, par1, par2, par3, data):
     return _lerp(x1, par1[i1], par1[i1 + 1], v2(0), v2(1))
 
 
+def index_pick(data, dim, index):
+    """``data`` at one position ``index`` (a one-element tensor) of axis
+    ``dim``, that axis dropped.  Indexing with a 0-d tensor would read it
+    on the host, which a CUDA graph cannot capture."""
+    return data.index_select(dim, index).squeeze(dim)
+
+
 def redshift_index(zr: float, par2, d2):
     """Bisection index + past-the-end flag for the redshift axis of 3-D
     Cloudy tables (grackle: cool1d_cloudy_g.F:128-153).
@@ -79,7 +86,8 @@ def redshift_index(zr: float, par2, d2):
     at/past the second-to-last redshift, in which case interpolation
     collapses to 2-D at the final table slice.
     """
-    z = torch.tensor([zr], dtype=par2.dtype, device=par2.device)
+    # a fill, not a copy from the host: a CUDA graph may capture this
+    z = torch.full((1,), zr, dtype=par2.dtype, device=par2.device)
     zi0 = torch.clamp(
         torch.searchsorted(par2, z, right=True)[0] - 1, 0, d2 - 3
     )
@@ -103,7 +111,9 @@ def interpolate_3dz(x1, zr: float, x3, par1, par2, par3, data, zi0,
     i3 = _uniform_index(x3, par3, d3)
 
     # --- full 3-D path (clamped so the end_int case stays in bounds) ---
-    zi = torch.clamp(zi0, 0, d2 - 2)
+    # the redshift index as a one-element index tensor: a 0-d one would
+    # be read on the host (see index_pick)
+    zi = torch.clamp(zi0, 0, d2 - 2).reshape(1)
 
     def v3(q, w):
         return _lerp(x3, par3[i3], par3[i3 + 1],
@@ -119,7 +129,7 @@ def interpolate_3dz(x1, zr: float, x3, par1, par2, par3, data, zi0,
     full = _lerp(x1, par1[i1], par1[i1 + 1], v2(0), v2(1))
 
     # --- 2-D fallback at the last redshift slice ---
-    zlast = torch.clamp(zi0, 0, d2 - 1)
+    zlast = torch.clamp(zi0, 0, d2 - 1).reshape(1)
 
     def f3(q):
         return _lerp(x3, par3[i3], par3[i3 + 1],
@@ -159,11 +169,12 @@ def collapse_redshift(data, par2, zr: float, zi0, end_int):
     with the log(1+z) rule (interpolators_g.F:252-257), honoring the
     past-the-end 2-D fallback.  Returns (D1, D3)."""
     d2 = data.shape[1]
-    zi = torch.clamp(zi0, 0, d2 - 2)
+    zi = torch.clamp(zi0, 0, d2 - 2).reshape(1)
     p_lo, p_hi = par2[zi], par2[zi + 1]
     wz = torch.log((1.0 + zr) / (1.0 + p_lo)) / torch.log(
         (1.0 + p_hi) / (1.0 + p_lo))
-    full = data[:, zi] * (1.0 - wz) + data[:, zi + 1] * wz
+    full = (index_pick(data, 1, zi) * (1.0 - wz)
+            + index_pick(data, 1, zi + 1) * wz)
     return torch.where(end_int, data[:, d2 - 1], full)
 
 
@@ -194,7 +205,9 @@ def rows_at_scalar_temperature(rows, par_t, x_scalar: float):
     bracketing columns, weighted."""
     x = torch.full((), x_scalar, dtype=rows.dtype, device=rows.device)
     i, frac = _uniform_frac(x, par_t, rows.shape[1])
-    return rows[:, i] * (1.0 - frac) + rows[:, i + 1] * frac
+    i = i.reshape(1)
+    return (index_pick(rows, 1, i) * (1.0 - frac)
+            + index_pick(rows, 1, i + 1) * frac)
 
 
 def _bisect_index(x, par, dim):

@@ -24,7 +24,8 @@ import torch
 
 from ..constants import tiny
 from . import chemistry_step as cs
-from .common import div_host, dtype_huge8, dtype_tiny8, dtype_tolerance
+from .common import (as_dt, div_host, dtype_huge8, dtype_tiny8,
+                     dtype_tolerance)
 
 
 def _two_sum(hi, lo, x):
@@ -74,7 +75,8 @@ def network_update(
     ----------
     us : object with ``dom`` and ``chunit`` host-float attributes (the
         only UnitScalars fields this region consumes).
-    dt : full-step timestep (host float).
+    dt : full-step timestep: a host float or a 0-d tensor on the
+        fields' device (ops/common.as_dt; nothing is read on the host).
     f : field dict restricted to :func:`network_field_keys`.
     rs : RateState from lookup_cool_rates (None when
         primordial_chemistry == 0); only ``k``/``shields``/``h2dust``
@@ -95,6 +97,7 @@ def network_update(
 
     ispecies = cfg.primordial_chemistry
     dtype = f["density"].dtype
+    dt = as_dt(dt, f["density"])
     tiny8 = dtype_tiny8(dtype)
     huge8 = dtype_huge8(dtype)
     tolerance = dtype_tolerance(dtype)
@@ -219,18 +222,18 @@ def network_update(
     # advance cell clocks and retire finished cells
     # (solve_rate_cool_g.F:803-813)
     if compensated:
-        step_t = torch.where(itmask, dtit, torch.full_like(dtit, dt))
+        step_t = torch.where(itmask, dtit, dt.to(dtype))
         t_hi, t_lo = _two_sum(ttot, carry_v["ttot_lo"], step_t)
         # the min(..., dt) clamp: once the compensated clock reaches dt
         # the pair snaps to (dt, 0) exactly, like the uncompensated min
         done = (t_hi + t_lo) >= dt
-        ttot_new = torch.where(done, torch.full_like(t_hi, dt), t_hi)
+        ttot_new = torch.where(done, dt.to(dtype), t_hi)
         ttot_lo_new = torch.where(done, torch.zeros_like(t_lo), t_lo)
         unfinished = torch.abs((dt - ttot_new) - ttot_lo_new) \
             >= tolerance * dt
     else:
         ttot_new = torch.clamp(
-            ttot + torch.where(itmask, dtit, torch.full_like(dtit, dt)),
+            ttot + torch.where(itmask, dtit, dt.to(dtype)),
             max=dt,
         )
         unfinished = torch.abs(dt - ttot_new) >= tolerance * dt

@@ -29,7 +29,7 @@ import threading
 import torch
 
 from . import network as _plain
-from .common import dtype_huge8, dtype_tiny8, dtype_tolerance
+from .common import as_dt, dtype_huge8, dtype_tiny8, dtype_tolerance
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "network_update.cu")
@@ -99,9 +99,8 @@ class _NetworkArgs(ctypes.Structure):
         ("compensated", ctypes.c_int),
         ("rt", ctypes.c_int),
         ("rt_hydrogen_only", ctypes.c_int),
-        ("dt", ctypes.c_double),
-        ("half_dt", ctypes.c_double),
-        ("tol_dt", ctypes.c_double),
+        ("dt", ctypes.c_void_p),
+        ("tolerance", ctypes.c_double),
         ("tiny8", ctypes.c_double),
         ("huge8", ctypes.c_double),
         ("dom", ctypes.c_double),
@@ -128,35 +127,45 @@ def _nvcc():
     return path if os.path.exists(path) else "nvcc"
 
 
-def library_path() -> str:
-    """Where the kernel library for the current source is built: the
-    file name carries a hash of the source and flags, so an edited source
-    is rebuilt."""
-    with open(SOURCE, "rb") as fh:
+def library_path(source=SOURCE, flags=NVCC_FLAGS) -> str:
+    """Where the library of ``source`` built with ``flags`` goes: the file
+    name carries a hash of the source and flags, so an edited source is
+    rebuilt."""
+    with open(source, "rb") as fh:
         digest = hashlib.sha256(
-            fh.read() + " ".join(NVCC_FLAGS).encode()
+            fh.read() + " ".join(flags).encode()
         ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libnetwork_update-{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+
+def compile_library(source, flags) -> tuple[str, str]:
+    """Compile ``source`` with nvcc into a shared library (if not yet
+    built).  Returns (library path, compiler output; "" when the library
+    existed).  Raises if nvcc fails."""
+    out = library_path(source, flags)
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *flags, "-o", tmp, source]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {os.path.basename(source)}:\n"
+            + " ".join(cmd) + "\n" + res.stdout + res.stderr
+        )
+    os.replace(tmp, out)
+    return out, res.stdout + res.stderr
 
 
 def build() -> str:
     """Compile csrc/network_update.cu with nvcc (if not yet built) and
     return the library path.  Raises if nvcc fails."""
     global build_log
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed to build the network kernel:\n"
-            + " ".join(cmd) + "\n" + res.stdout + res.stderr
-        )
-    os.replace(tmp, out)
-    build_log = res.stdout + res.stderr
+    out, log = compile_library(SOURCE, NVCC_FLAGS)
+    if log:
+        build_log = log
     return out
 
 
@@ -324,6 +333,10 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             optrs[len(OUT_FIELD_SLOTS) + j] = carry_out[name].data_ptr()
     moved += sum(t.element_size() * n for t in
                  list(fields_out.values()) + list(carry_out.values()))
+    # the kernel reads dt from device memory (a graph replays with a new
+    # one)
+    dt = as_dt(dt, ref)
+    moved += dt.element_size()
 
     lib = load()
     is_double = int(dtype == torch.float64)
@@ -343,7 +356,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
         compensated=int(compensated),
         rt=int(cfg.use_radiative_transfer == 1),
         rt_hydrogen_only=int(cfg.radiative_transfer_hydrogen_only),
-        dt=float(dt), half_dt=0.5 * dt, tol_dt=tolerance * dt,
+        dt=dt.data_ptr(), tolerance=tolerance,
         tiny8=dtype_tiny8(dtype), huge8=dtype_huge8(dtype),
         dom=float(us.dom), chunit=float(us.chunit),
         k27=float(rs.shields["k27"]) if ispecies > 0 else 0.0,
@@ -364,6 +377,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise RuntimeError(f"network kernel launch failed: CUDA error "
                                f"{err}")
 
+    launch.dt = dt  # the kernel reads it at every launch
     launch.bytes = moved
     launch.grid = grid
     launch.ctas_per_sm = ctas_per_sm

@@ -8,11 +8,15 @@ per-cell mask retires cells individually.
 
 Every subcycle runs the network region through
 ``ops/network_kernel.network_update``: the CUDA kernel on CUDA tensors,
-the plain twin (ops/network.py) on CPU tensors.  The loop reads its exit
-condition on the host only every ``CHECK_EVERY`` subcycles: a subcycle in
-which no cell is active changes no output (every carry update is masked),
-so running up to ``CHECK_EVERY - 1`` of them past the last active cell is
-exact.
+the plain twin (ops/network.py) on CPU tensors.  The loops go through
+``ops/device_loop.device_while``: eagerly, the subcycle loop reads its
+exit condition on the host only every ``CHECK_EVERY`` subcycles (a
+subcycle in which no cell is active changes no output: every carry
+update is masked, so running up to ``CHECK_EVERY - 1`` of them past the
+last active cell is exact); inside a CUDA-graph capture each loop is a
+conditional WHILE node and the solve reads nothing on the host.  ``dt``
+is a host float or a 0-d tensor (ops/common.as_dt); the solves convert
+it on entry.
 
 :func:`solve_rate_cool` is the monolithic solve;
 :func:`solve_rate_cool_compacted` runs the same per-cell subcycles on tiles
@@ -29,8 +33,9 @@ import torch
 
 from ..constants import tiny
 from . import chemistry_step as cs
-from .common import dtype_huge8
+from .common import as_dt, dtype_huge8
 from .cooling import cool1d_multi
+from .device_loop import device_while, zero_steps
 from .network import network_field_keys
 from .network_kernel import network_update
 
@@ -38,7 +43,8 @@ _SPECIES_1 = ["de", "HI", "HII", "HeI", "HeII", "HeIII"]
 _SPECIES_2 = ["HM", "H2I", "H2II"]
 _SPECIES_3 = ["DI", "DII", "HDI"]
 
-#: subcycles between host reads of the loop's "any cell active" flag
+#: subcycles between reads of the loop's "any cell active" flag (a host
+#: read when eager, the condition kernel inside a capture)
 CHECK_EVERY = 8
 
 
@@ -154,8 +160,11 @@ class SolveResult:
     n_iterations: Any  # scalar int: subcycles taken (max over cells)
     converged: Any  # [N] bool: cells that reached dt within max_iterations
     cell_iterations: Any  # [N] int32: subcycles each cell was active for
-    subcycles: int = 0  # subcycles run (network launches), masked ones too
-    trips: int = 0  # outer batches of the compacted solve
+    # subcycles run (network launches), masked ones too, and the outer
+    # batches of the compacted solve: Python ints when eager, 0-d int64
+    # tensors counted on the device inside a capture
+    subcycles: Any = 0
+    trips: Any = 0
 
 
 def prepare_fields(cfg, f, us, imetal: bool, comoving: bool):
@@ -292,7 +301,8 @@ def run_subcycles(
     ``const_f`` holds the read-only field tensors (split_state).
 
     Mirrors the subcycle loop of solve_rate_cool_g.F:443-813.  Returns
-    (carry, subcycles run).
+    (carry, subcycles run): the loop stops at ``chunk`` subcycles, also
+    when ``chunk`` is not a multiple of CHECK_EVERY.
     """
     if const_f is None or "density" not in const_f:
         raise ValueError(
@@ -301,17 +311,15 @@ def run_subcycles(
         )
     if chunk is None:
         chunk = cfg.max_iterations
-    carry = carry0
-    step = 0
-    while step < chunk:
-        if step % CHECK_EVERY == 0 and not bool(carry["itmask"].any()):
-            break
-        carry = subcycle(
+
+    def step(carry, _):
+        return subcycle(
             cfg, tables, cloudy_prim, cloudy_met, pr, us, carry, dt,
             imetal, cloudy_data_new, const_f, l_h2shield_field,
         )
-        step += 1
-    return carry, step
+
+    return device_while(lambda c: c["itmask"], step, carry0, chunk,
+                        CHECK_EVERY)
 
 
 def finalize_fields(cfg, f, us, imetal: bool, comoving: bool):
@@ -347,6 +355,7 @@ def solve_rate_cool(
     energy update -> BE Gauss-Seidel species step), rescaling, and final
     conservation renormalization.
     """
+    dt = as_dt(dt, f["density"])
     f, itmask0 = prepare_fields(cfg, f, us, imetal, comoving)
     f_state, f_const = split_state(cfg, f)
     carry = init_carry(f_state, itmask0, cfg)
@@ -417,7 +426,9 @@ def solve_rate_cool_compacted(
        (default :func:`warm_tile_width`); the last tile is clamped to
        ``[n - tile, n)``, so its overlap re-runs cells that are already
        done (masked no-ops) or advances active ones earlier;
-    2. outer trips, one host read each, take the ``batch`` active cells
+    2. outer trips (one loop step each: a host read when eager, the
+       outer WHILE node of a capture, with the subcycle loop's node
+       nested in it) take the ``batch`` active cells
        with the most predicted residual subcycles ``(dt - ttot) /
        dtit_prev`` (``torch.topk``, indices sorted), gather them, run
        them for up to max_iterations subcycles and scatter them back.
@@ -431,6 +442,7 @@ def solve_rate_cool_compacted(
     (gathered only), so each trip is one gather and one scatter and
     every row the network kernel reads is contiguous.
     """
+    dt = as_dt(dt, f["density"])
     f, itmask0 = prepare_fields(cfg, f, us, imetal, comoving)
     f_state, f_const = split_state(cfg, f)
     carry = init_carry(f_state, itmask0, cfg)
@@ -479,7 +491,7 @@ def solve_rate_cool_compacted(
         return pack(c), steps
 
     M = pack(carry)
-    subcycles = 0
+    subcycles = zero_steps(M)
     if warm > 0:
         width = min(tile, n)
         for i in range(-(-n // width)):
@@ -487,22 +499,24 @@ def solve_rate_cool_compacted(
             cells = slice(start, start + width)
             packed, steps = run(M[:, cells], K[:, cells], warm)
             M[:, cells] = packed
-            subcycles += steps
+            subcycles = subcycles + steps
 
-    trips = 0
-    while bool((M[row["itmask"]] > 0).any()):
-        mask, ttot, dtit = (M[row["itmask"]], M[row["ttot"]],
-                            M[row["dtit_prev"]])
+    def trip(state, _):
+        m, done = state
+        mask, ttot, dtit = (m[row["itmask"]], m[row["ttot"]],
+                            m[row["dtit_prev"]])
         residual = (dt - ttot) / torch.clamp(dtit, min=tiny)
         key = torch.where(mask > 0, residual,
                           torch.full_like(residual, -1.0))
         # batch composition never changes a cell's result; ascending
         # indices keep the gather and scatter in memory order
         idx = torch.sort(torch.topk(key, batch, sorted=False).indices).values
-        packed, steps = run(M.index_select(1, idx), K.index_select(1, idx),
+        packed, steps = run(m.index_select(1, idx), K.index_select(1, idx),
                             cfg.max_iterations)
-        M.index_copy_(1, idx, packed)
-        subcycles += steps
-        trips += 1
+        m.index_copy_(1, idx, packed)
+        return m, done + steps
+
+    (M, subcycles), trips = device_while(
+        lambda s: s[0][row["itmask"]] > 0, trip, (M, subcycles))
     return _result(cfg, f_const, unpack(M), us, imetal, comoving,
                    subcycles, trips)

@@ -14,10 +14,11 @@ import math
 import torch
 
 from . import interp
+from .device_loop import device_while
 
 MU_METAL = 16.0
 TI_MAX = 20
-#: fixed-point steps per host read of "every cell converged"
+#: fixed-point steps per read of "every cell converged"
 BLOCK = 4
 
 
@@ -54,15 +55,12 @@ def tabulated_temperature(cloudy, d, metal, e, rhoH, dom, zr, temstart,
 def _fixed_point(mu_interp, d, metal, e, temstart, gamma, utem, imetal):
     """The damped fixed point (calc_temp1d_cloudy_g.F:128-224).  Converged
     cells are frozen by the ``done`` mask, so stopping once every cell has
-    converged, read on the host once per BLOCK steps, equals the
-    reference's fixed TI_MAX sweep."""
+    converged, read once per BLOCK steps (ops/device_loop.device_while),
+    equals the reference's fixed TI_MAX sweep."""
     inv_log10 = 1.0 / math.log(10.0)
-    munew = torch.ones_like(e)
-    tgas = torch.zeros_like(e)
-    done = torch.zeros(e.shape, dtype=torch.bool, device=e.device)
-    for i in range(TI_MAX):
-        if i % BLOCK == 0 and bool(done.all()):
-            break
+
+    def step(carry, _):
+        munew, tgas, done = carry
         muold = munew
         tgas_i = torch.clamp((gamma - 1.0) * e * munew * utem, min=temstart)
         log10tem = torch.log(tgas_i) * inv_log10
@@ -71,7 +69,12 @@ def _fixed_point(mu_interp, d, metal, e, temstart, gamma, utem, imetal):
         conv = torch.abs((mu_damped / muold) - 1.0) <= 1.0e-2
         munew = torch.where(done, munew, mu_damped)
         tgas = torch.where(done, tgas, tgas_i)
-        done = done | conv
+        return munew, tgas, done | conv
+
+    carry = (torch.ones_like(e), torch.zeros_like(e),
+             torch.zeros(e.shape, dtype=torch.bool, device=e.device))
+    (munew, tgas, done), _ = device_while(lambda c: ~c[2], step, carry,
+                                          TI_MAX, BLOCK)
 
     # metal correction at convergence (calc_temp1d_cloudy_g.F:214-224);
     # unconverged cells keep the raw mu, as the reference's fall-through
