@@ -11,8 +11,10 @@ the stored answers, and drives the flagship ``solve_chemistry`` (12
 species + dust + metal cooling + CMB floor, 1,048,576 cells) in f64 and
 f32 through the network kernel, on the default compacted path and, in
 f64, the monolithic one; then captures ``functional.make_solve_fn`` into
-CUDA graphs, whose loops are conditional WHILE nodes, and replays them.
-Phases:
+CUDA graphs, whose loops are conditional WHILE nodes, and replays them;
+and holds the stateful API's own graphs (graph_cache.py: a context's
+second call with a key captures, later ones replay) to the uncached
+body.  Phases:
 
 0. device: the card's name and power limit (nvidia-smi), torch and its
    CUDA, nvcc and the driver;
@@ -40,15 +42,20 @@ Phases:
    example (setup_fluid_container and the functional closures, one step
    of FUNCTIONAL_JIT_SUBCYCLES subcycles) and the old-style rank-4
    cooling time, each against the port's CPU run at rtol 1e-6;
-4. flagship at the default solver_compaction (the compacted path): wall
-   seconds after one warm-up, cells/s, outer trips, subcycles, converged
-   share, peak CUDA memory, and kernel launches (must equal the
+4. flagship at the default solver_compaction (the compacted path), three
+   stateful calls of one context (eager, capturing, replayed), each
+   bit-identical to the first: the replay's wall seconds (the others'
+   beside it), cells/s, outer trips, subcycles, converged share, peak
+   CUDA memory, and kernel launches (the replay's, which must equal the
    subcycles run over every warm tile and trip), at precision 64 and 32;
-4b. one monolithic f64 flagship solve: its fields and per-cell subcycle
-   counts must be bit-identical to phase 4's compacted f64 solve;
-4c. exact-integration tabulated cooling at 1,048,576 cells, f64 and f32:
-   wall seconds, cells/s, peak memory and no kernel launch, against the
-   subcycled tabulated solve and on its first 4,096 cells against the CPU;
+4b. one monolithic f64 flagship solve, the uncached body: its fields and
+   per-cell subcycle counts must be bit-identical to phase 4's replayed
+   compacted f64 solve;
+4c. exact-integration tabulated cooling at 1,048,576 cells, f64 and f32,
+   three stateful calls (eager, capturing, replayed; the replay timed):
+   cells/s, the eager call's peak memory, the graph's pool and no kernel
+   launch, against the uncached subcycled tabulated solve and on its
+   first 4,096 cells against the CPU;
 4d. functional.make_solve_fn on the f64 flagship, bit-identical to phase
    4's solve, one kernel launch a subcycle;
 4e. old-style rank-5 Cloudy metal cooling with primordial_chemistry 1 at
@@ -64,7 +71,8 @@ Phases:
 4h. the Python examples (grackle_tpu_torch/examples): cooling_rate with
    chemistry 0-3 and both freefall runs in full, cooling_cell over its
    first COOLING_CELL_STEPS steps, against tests/answers/examples at rtol
-   1e-6, with wall seconds and seconds a step;
+   1e-6, with wall seconds and seconds a step (their steps replay graphs
+   after the first two of a width; each line counts the kinds of call);
 4i. the C ABI: the port's libgrackle_tpu.so built with g++, the unedited
    C examples linked against it and run on the card and on the CPU: the
    success marker, the same printed values, and kernel launches on the
@@ -114,18 +122,35 @@ Phases:
    seconds (median of REPLAYS), node count (the graph's own and every
    WHILE body's) and the graph's and its loop bodies' pool bytes; last,
    the loop-body pools left once every graph is deleted (none);
+4n. the stateful API replayed (graph_cache.py): for each entry, the
+   eager first call, the capturing second call and replays with new
+   inputs and a new dt, each bit-identical to the uncached body on the
+   same inputs (fields, cell_iterations, converged, subcycles), one
+   kernel launch a subcycle, the previous call's returned tensors
+   unchanged, the cache within its bound, a changed a_value a new key:
+   the f64 flagship (compacted) and exact cooling at 1,048,576 cells,
+   4e's old-style rank-5 chemistry 1, solve_chemistry_grid with
+   chemistry 2, the UVB and H2 self-shielding 1 on phase 3's grid, the
+   five calculate_* on the flagship state, CELL_STEPS cooling_cell steps
+   of one cell (then more widths than the bound holds, then a host
+   cycling through the CYCLE_WIDTHS for CYCLE_ROUNDS rounds, its
+   per-call wall beside the uncached body's), and the flagship on four
+   shards; per kind of call its wall seconds, per capture the graph's
+   nodes and pools; no loop-body pool left after;
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
    launch of the process, and with it phases 3 to 4e.
 
-Each phase prints one line (4m one for each run).  Then one JSON line
-lists the kernels (the network kernel's launches are the sum over the
-runs of phases 4 f64, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k and 4l, each counted
-from 0 just before it, a host program of 4i or 4k counting its own
-through GRACKLE_TPU_TORCH_LAUNCH_LOG, and the subcycles of 4m's replays,
-read from the graphs' device counters; the loop kernel's are 4m's
-replays' launches, which it counts on the device), and the
+Each phase prints one line (4m and 4n one for each run).  Then one JSON
+line lists the kernels (the network kernel's launches are the sum over
+the runs of phases 4 f64, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l and 4n's
+stateful calls, each counted from 0 just before it, and 4m's replays:
+an eager launch counted by the wrapper on the host, a launch recorded
+into a graph counted on the card at every replay by a node beside it
+(ops/network_kernel.count_replays), a host program of 4i or 4k counting
+its own through GRACKLE_TPU_TORCH_LAUNCH_LOG; the loop kernel's are 4m's
+and 4n's replays' launches, which it counts on the device), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -134,6 +159,7 @@ jax nor grackle_tpu.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -199,6 +225,25 @@ STEPS_GRAPH = 3
 ENERGY_FLOOR = 0.5
 REPLAYS = 3
 CELL_REPLAYS = 20
+#: phase 4n: the kinds of a stateful call, in the order a key meets them
+#: (graph_cache.py); the dt of the new inputs each entry replays with;
+#: the a_value that makes each entry's key new; the cooling_cell steps
+CALL_KINDS = ("eager", "capture", "replay")
+#: the device the stateful calls' graphs are held on, as graph_cache
+#: names it
+CARD_DEVICE = "cuda:0"
+DT_REPLAY = 5.0e-5
+A_VALUE_CHANGED = 0.5
+CELL_STEPS = 100
+#: phase 4n: the dt of a solve entry's calls on the changed a_value: dt
+#: is no part of a key, and a short step runs few subcycles, so the
+#: eager calls that the new key makes stay short at 1,048,576 cells
+DT_NEW_KEY = 1.0e-8
+#: phase 4n: the patch widths (cubes of 8 to 22 cells a side, as an AMR
+#: host's grids) a host cycles through, more than the card's bound on
+#: graphs, and the rounds of the cycle
+CYCLE_WIDTHS = tuple(side**3 for side in range(8, 24, 2))
+CYCLE_ROUNDS = 4
 #: phase 4m: the loop-control kernel's checks: mask widths (one at an odd
 #: byte offset) and (step, advance, cap) triples
 LOOP_WIDTHS = (1, 17, 4099, N_FLAGSHIP)
@@ -375,6 +420,15 @@ def grid_full_setup(device, shape=GRID_SHAPE, start=GRID_START,
         device, primordial_chemistry=3, metal_cooling=1, dust_chemistry=1,
         UVbackground=1, H2_self_shielding=1, use_volumetric_heating_rate=1,
         use_specific_heating_rate=1)
+    f, sl = grid_fields(cd, shape, start, end, seed)
+    return cd, f, sl
+
+
+def grid_fields(cd, shape=GRID_SHAPE, start=GRID_START, end=GRID_END,
+                seed=11):
+    """The grid state of grid_full_setup for ``cd``'s fields (its
+    species, the metal and heating-rate fields it reads): (fields,
+    active-region slice)."""
     rng = np.random.RandomState(seed)
     tiny = 1e-20
     sl = tuple(slice(s, e + 1) for s, e in zip(start, end))
@@ -401,7 +455,20 @@ def grid_full_setup(device, shape=GRID_SHAPE, start=GRID_START,
     T = 10.0 ** rng.uniform(3.5, 6.5, shape)
     f["energy"][sl] = (T[sl] / cd.temperature_units / 0.8
                        / (cd.Gamma - 1.0))
-    return cd, f, sl
+    drop = []
+    if cd.primordial_chemistry < 2:
+        drop += ["HM", "H2I", "H2II"]
+    if cd.primordial_chemistry < 3:
+        drop += ["DI", "DII", "HDI"]
+    if not cd.metal_cooling:
+        drop.append("metal")
+    if not cd.use_volumetric_heating_rate:
+        drop.append("volumetric_heating_rate")
+    if not cd.use_specific_heating_rate:
+        drop.append("specific_heating_rate")
+    for name in drop:
+        del f[name]
+    return f, sl
 
 
 def grid_full_answer(device):
@@ -827,6 +894,94 @@ def device_fields(fields, device="cuda"):
             for k, v in fields.items()}
 
 
+def zero_launches():
+    """Set the network kernel's launch counts to 0: the wrapper's host
+    launches and, counted on the card, those of graph replays (armed
+    here for the graphs captured from now on)."""
+    from grackle_tpu_torch.ops.network_kernel import (count_replays,
+                                                      zero_launch_counts)
+
+    count_replays("cuda")
+    zero_launch_counts()
+
+
+def launches_run():
+    """The network kernel's launches since zero_launches(): the host's
+    and the graph replays' (counted on the card, read here)."""
+    from grackle_tpu_torch.ops.network_kernel import (network_update_cuda,
+                                                      replayed_launches)
+
+    return network_update_cuda.launches + replayed_launches()
+
+
+@contextlib.contextmanager
+def uncached():
+    """The stateful entry points with their graph cache bypassed, as on
+    the CPU: every call runs its body (api.solve_prepared, an ops/derived
+    function) eagerly on the inputs it is given.  The eager reference of
+    a stateful call."""
+    from grackle_tpu_torch import graph_cache
+
+    on_card = graph_cache._on_card
+    graph_cache._on_card = lambda device: False
+    try:
+        yield
+    finally:
+        graph_cache._on_card = on_card
+
+
+def stateful_call(graphs, fn, *args, **kw):
+    """``fn(*args, **kw)`` on the card, timed to its end: (a Counter of
+    the kinds of call the graph cache ``graphs`` made of it, its result,
+    wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = graphs.calls.copy()
+    t0 = time.time()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return graphs.calls - before, out, time.time() - t0
+
+
+def tree_clone(tree):
+    """A copy of every tensor and array in a result."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(v) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return tree.copy() if isinstance(tree, np.ndarray) else tree.clone()
+    return tree
+
+
+def tree_differences(got, want, where=""):
+    """The places in which two results (dicts, tuples, tensors, arrays,
+    numbers) do not hold the same bits."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [f"{where}keys"]
+        return [d for k in want
+                for d in tree_differences(got[k], want[k], f"{where}{k}/")]
+    if isinstance(want, (tuple, list)):
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in tree_differences(g, w, f"{where}{i}/")]
+    if isinstance(want, torch.Tensor):
+        ok = isinstance(got, torch.Tensor) and (
+            same_bits(got, want) if want.is_floating_point()
+            else torch.equal(got, want))
+    elif isinstance(want, np.ndarray):
+        ok = (got.dtype == want.dtype and got.shape == want.shape
+              and np.array_equal(got.view(np.uint8), want.view(np.uint8)))
+    else:
+        ok = got == want
+    return [] if ok else [where.rstrip("/") or "value"]
+
+
 def pool_bytes(pool_id):
     """Bytes the caching allocator holds in the memory pool ``pool_id``
     (its segments), or None where the snapshot does not name pools."""
@@ -882,6 +1037,38 @@ def capture_graph(fn, reps=REPLAYS):
                  body_pool=(pool_bytes(body[0].id) if len(body) == 1
                             else 0 if not body else None))
     return graph, out, stats
+
+
+def capture_measured(body, inputs, stats):
+    """graph_cache._capture, timed, under set_sync_debug_mode("error")
+    (any synchronisation raises), its graph kept to count the nodes; the
+    capture's numbers are appended to ``stats``: capture and
+    end-and-instantiate seconds, the graph's nodes (its own and every
+    WHILE body's) and the bytes of its pool and its loop bodies' pool."""
+    import torch
+
+    from grackle_tpu_torch.ops import device_loop, graph_loop
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    device_loop.body_nodes = 0
+    held = set(device_loop._pools)
+    t0 = time.time()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outputs = body(inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    t1 = time.time()
+    graph.instantiate()
+    sizes = [pool_bytes(p.id) for cid, p in device_loop._pools.items()
+             if cid not in held]
+    stats.append(dict(
+        capture=t1 - t0, instantiate=time.time() - t1,
+        nodes=graph_loop.graph_nodes(graph.raw_cuda_graph())
+        + device_loop.body_nodes, pool=pool_bytes(graph.pool()),
+        body_pool=None if None in sizes else sum(sizes)))
+    return graph, outputs
 
 
 def graph_stats(stats):
@@ -948,25 +1135,29 @@ def concurrent_replays(pairs, inputs):
     return msg
 
 
-def released_pools(wait_s=2.0):
-    """Once every captured graph is deleted: release their loop-body
-    pools and return the line; raises if a pool is left after
-    ``wait_s`` seconds (the CUDA driver reports a destroyed graph on a
-    thread of its own)."""
+def released_pools(before=(), wait_s=2.0):
+    """Once the graphs captured since the loop-body pools ``before`` were
+    held are deleted: release their pools and return the line; raises if
+    one of them is left after ``wait_s`` seconds (the CUDA driver reports
+    a destroyed graph on a thread of its own).  Pools held before, by
+    graphs another phase keeps, are not counted."""
     import torch
 
     from grackle_tpu_torch.ops import device_loop
 
-    held = len(device_loop._pools)
+    def mine():
+        return [cid for cid in device_loop._pools if cid not in before]
+
+    held = len(mine())
     torch.cuda.synchronize()
     t0 = time.time()
     while True:
         device_loop.release_pools()
-        if not device_loop._pools or time.time() - t0 > wait_s:
+        if not mine() or time.time() - t0 > wait_s:
             break
         time.sleep(0.05)
     torch.cuda.empty_cache()
-    left = len(device_loop._pools)
+    left = len(mine())
     msg = (f"loop-body pools: {held} held before the graphs' deletion was "
            f"reported, {left} left after ({time.time() - t0:.3f} s)")
     if left:
@@ -1190,6 +1381,8 @@ class Smoke:
         #: kernel launches of each main-path run, counted from 0 just
         #: before it: the kernel line's launches are their sum
         self.path_launches = {}
+        #: nvidia-smi's name and power limit of the card (phase 0)
+        self.card = "not read"
 
     def phase(self, label, fn):
         t0 = time.time()
@@ -1211,6 +1404,7 @@ class Smoke:
         ).stdout.strip().splitlines()
         # the card's own line, exactly as nvidia-smi gives it
         print(out[0], flush=True)
+        self.card = out[0]
         import torch
 
         def run(cmd):
@@ -1417,32 +1611,44 @@ class Smoke:
 
     def flagship(self, precision):
         """The flagship at the default solver_compaction (the compacted
-        path): wall seconds after one warm-up, outer trips, and kernel
-        launches, which must equal the subcycles run over every warm tile
-        and trip.  The f64 run is the main path whose launches the kernel
-        line reports."""
+        path) through the stateful API: three calls of one context on
+        the same state, the eager first call, the second (captured into
+        a CUDA graph and replayed) and a replay, which the phase times;
+        each bit-identical to the first; outer trips, and kernel
+        launches (the host's and the replay's, which must equal the
+        subcycles run over every warm tile and trip).  The f64 run is the
+        main path whose launches the kernel line reports."""
         import torch
 
         from grackle_tpu_torch.api import solve_path
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
-        def run():
-            cd = flagship_chem(precision, "cuda")
-            if solve_path(cd.config, N_FLAGSHIP) != "compact":
-                raise AssertionError("the flagship does not take the "
-                                     "compacted path")
-            fields = flagship_fields(cd, N_FLAGSHIP)
-            torch.cuda.synchronize()
-            network_update_cuda.launches = 0
-            t0 = time.time()
-            new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            return cd, new_f, diag, wall, network_update_cuda.launches
-
-        run()  # warm-up: same solve, discarded
-        torch.cuda.reset_peak_memory_stats()
-        cd, new_f, diag, wall, launches = run()
+        cd = flagship_chem(precision, "cuda")
+        if solve_path(cd.config, N_FLAGSHIP) != "compact":
+            raise AssertionError("the flagship does not take the "
+                                 "compacted path")
+        fields = flagship_fields(cd, N_FLAGSHIP)
+        walls, first = [], None
+        for kind in CALL_KINDS:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            kinds, (new_f, diag), wall = stateful_call(
+                cd.context.graphs, cd.solve_chemistry, fields, DT_FLAGSHIP)
+            launches = launches_run()
+            if kinds != {kind: 1}:
+                raise AssertionError(f"f{precision}: call {len(walls) + 1} "
+                                     f"was {dict(kinds)}, not {kind}")
+            if launches != diag["subcycles"] or launches == 0:
+                raise AssertionError(
+                    f"f{precision} {kind}: {launches} kernel launches for "
+                    f"{diag['subcycles']} subcycles")
+            if first is None:
+                first = (new_f, diag)
+            elif tree_differences((new_f, diag), first):
+                raise AssertionError(
+                    f"f{precision} {kind} differs from the eager call in "
+                    f"{tree_differences((new_f, diag), first)}")
+            walls.append(wall)
+        del first
         peak = torch.cuda.max_memory_allocated() / 2**30
         subcycles = diag["subcycles"]
         n_it = int(diag["n_iterations"])
@@ -1451,24 +1657,25 @@ class Smoke:
             if val.shape != (N_FLAGSHIP,) or not bool(
                     torch.isfinite(val).all()):
                 raise AssertionError(f"f{precision} {key}: bad output")
-        if launches != subcycles or launches == 0:
-            raise AssertionError(
-                f"f{precision}: {launches} kernel launches for "
-                f"{subcycles} subcycles")
         if diag["trips"] == 0:
             raise AssertionError(f"f{precision}: no outer trip ran")
+        eager_s, capture_s, wall = walls
         if precision == 64:
             self.path_launches["compacted"] = launches
             self.compact64 = (new_f, diag, wall)
+            self.compact64_eager = eager_s
             self.flagship64 = cd
         else:
             self.compact32 = (new_f, diag, wall)
+            self.compact32_eager = eager_s
         msg = (f"f{precision} compacted, {N_FLAGSHIP} cells dt "
-               f"{DT_FLAGSHIP}: {wall:.3f} s, {N_FLAGSHIP / wall:.0f} "
-               f"cells/s, n_iterations {n_it}, outer trips "
-               f"{diag['trips']}, subcycles run {subcycles}, converged "
-               f"{conv:.6f}, peak {peak:.2f} GiB, kernel launches "
-               f"{launches}")
+               f"{DT_FLAGSHIP}, timed call: a replay, {wall:.3f} s, "
+               f"{N_FLAGSHIP / wall:.0f} cells/s (the context's eager first "
+               f"call {eager_s:.3f} s, its capturing second call "
+               f"{capture_s:.3f} s; all three bit-identical), n_iterations "
+               f"{n_it}, outer trips {diag['trips']}, subcycles run "
+               f"{subcycles}, converged {conv:.6f}, peak {peak:.2f} GiB, "
+               f"kernel launches {launches} (replayed)")
         if precision == 32 and getattr(self, "compact64", None) is not None:
             e64 = self.compact64[0]["energy"]
             rel = (new_f["energy"].double() - e64).abs() / e64.abs()
@@ -1607,7 +1814,7 @@ class Smoke:
         from grackle_tpu_torch import chemistry_data, setup_fluid_container
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
         from grackle_tpu_torch.ops import device_loop, graph_loop
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+        from grackle_tpu_torch.ops.network_kernel import replayed_launches
         from grackle_tpu_torch.utilities.physical_constants import (
             cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
 
@@ -1615,6 +1822,8 @@ class Smoke:
                             ("mono64", "4b"), ("tabulated64", "4c f64")):
             if getattr(self, attr, None) is None:
                 raise AssertionError(f"phase {phase} did not complete")
+        # graphs of earlier phases' contexts (phase 4's) hold their pools
+        pools_before = set(device_loop._pools)
         parts = [self.loop_kernel()]
         print(f"[4m loop kernel] {parts[0]}", flush=True)
 
@@ -1660,7 +1869,7 @@ class Smoke:
             parts.append(msg)
 
         device_loop.device_launches = launches
-        network_update_cuda.launches = 0
+        zero_launches()
         graph_loop.cond.launches = 0
         try:
             # the f64 flagship on the compacted path, then a second dt
@@ -1691,7 +1900,8 @@ class Smoke:
             torch.cuda.synchronize()
             second_s = time.time() - t0
             t0 = time.time()
-            ref_f, ref_d = cd.solve_chemistry(host_fields, DT_SECOND)
+            with uncached():
+                ref_f, ref_d = cd.solve_chemistry(host_fields, DT_SECOND)
             torch.cuda.synchronize()
             eager_s = time.time() - t0
             differ = bit_differences(out_f, out_d, ref_f, ref_d)
@@ -1777,12 +1987,12 @@ class Smoke:
             # the f32 flagship (the nested dust Newton loop), the
             # monolithic f64 flagship, the subcycled tabulated state
             cd32 = flagship_chem(32, "cuda")
-            f32_f, f32_d, f32_wall = self.compact32
+            f32_f, f32_d, _ = self.compact32
             fields = device_fields(flagship_fields(cd32, N_FLAGSHIP))
             solve32 = gfn.make_solve_fn(cd32)
             graph, _, _ = run(f"f32 compacted {N_FLAGSHIP} cells",
                               lambda: solve32(fields, dt), f32_f, f32_d,
-                              eager_s=f32_wall)
+                              eager_s=self.compact32_eager)
             del graph, fields
             torch.cuda.empty_cache()
 
@@ -1849,19 +2059,414 @@ class Smoke:
         finally:
             device_loop.device_launches = None
         torch.cuda.synchronize()
-        parts.append(released_pools())
+        parts.append(released_pools(pools_before))
         print(f"[4m pools] {parts[-1]}", flush=True)
         loop_launches = int(launches)
-        if not replay_subcycles or not loop_launches:
+        replayed = replayed_launches()
+        if (not replay_subcycles or not loop_launches
+                or replayed != replay_subcycles):
             raise AssertionError(f"the replays ran {replay_subcycles} "
-                                 f"subcycles and {loop_launches} loop "
+                                 f"subcycles, {replayed} network kernel "
+                                 f"launches and {loop_launches} loop "
                                  f"kernel launches")
-        self.path_launches["captured_replays"] = replay_subcycles
+        self.path_launches["captured_replays"] = replayed
         self.loop["launches"] = loop_launches
-        parts.append(f"replays: {replay_subcycles} network kernel launches "
-                     f"(the device subcycle counters) and {loop_launches} "
-                     f"loop kernel launches (counted on the device)")
+        parts.append(f"replays: {replayed} network kernel launches and "
+                     f"{loop_launches} loop kernel launches (both counted "
+                     f"on the device; the device subcycle counters "
+                     f"{replay_subcycles})")
         return "; ".join(parts)
+
+    def stateful_replays(self):
+        """Phase 4n: the stateful API replayed (graph_cache.py).  Each
+        entry makes calls of one context: the eager first call, the
+        second (captured into a CUDA graph and replayed), and replays
+        with new inputs and a new dt, then the first inputs again.  Each
+        call must be bit-identical to the uncached body on the same
+        inputs (api.solve_prepared or ops/derived, the cache bypassed:
+        fields, cell_iterations, converged, subcycles), launch the
+        network kernel once a subcycle, and leave the tensors the
+        previous call returned as they were; the cache never holds more
+        than its bound; a changed a_value is a new key, whose first call
+        runs eagerly.  The entries: the f64 flagship on the compacted
+        path and exact tabulated cooling at N_FLAGSHIP cells; phase 4e's
+        old-style rank-5 chemistry 1; a chemistry-2 UVB state with H2
+        self-shielding 1 through solve_chemistry_grid on phase 3's
+        ghost-zoned grid; the five calculate_* on the flagship state;
+        CELL_STEPS cooling_cell steps of one cell, then one more width
+        than the bound; N_SHARDS shards of the flagship.  Each line gives
+        per kind of call the wall seconds (replays: median), and per
+        capture the graph's nodes (its own and its WHILE bodies') and
+        pools, beside the card's name and power limit.  Last, no
+        loop-body pool of these graphs is left once their contexts are
+        deleted."""
+        import torch
+
+        from grackle_tpu_torch import graph_cache
+        from grackle_tpu_torch.api import _compact_batch, solve_path
+        from grackle_tpu_torch.ops import device_loop
+        from grackle_tpu_torch.parallel.sharding import (
+            make_cell_mesh, solve_chemistry_sharded)
+
+        pools_before = set(device_loop._pools)
+        captures = []
+
+        def gib(b):
+            return "not measured" if b is None else f"{b / 2**30:.3f} GiB"
+
+        parts, launch_total = [], [0]
+
+        def report(label, walls, first_capture, extra=""):
+            kinds = []
+            for kind in CALL_KINDS:
+                if walls[kind]:
+                    kinds.append(f"{kind} {float(np.median(walls[kind])):.4f}"
+                                 f" s" + (f" (median of {len(walls[kind])})"
+                                          if len(walls[kind]) > 1 else ""))
+            caps = captures[first_capture:]
+            c = caps[0]
+            graphs_line = (
+                f"its graph: capture {c['capture']:.3f} s, end and "
+                f"instantiate {c['instantiate']:.3f} s, {c['nodes']} nodes, "
+                f"graph pool {gib(c['pool'])}, loop-body pool "
+                f"{gib(c['body_pool'])}")
+            if len(caps) > 1:
+                pools = [x[k] for x in caps for k in ("pool", "body_pool")]
+                graphs_line += (
+                    f"; {len(caps)} graphs captured in all, their pools "
+                    + gib(None if None in pools else sum(pools))
+                    + " together")
+            msg = (f"{label}: " + ", ".join(kinds) + f"; {graphs_line}"
+                   + extra + f" ({self.card})")
+            print(f"[4n {label}] {msg}", flush=True)
+            parts.append(msg)
+
+        def solve_launches(got):
+            subs = got[1]["subcycles"]
+            return sum(subs) if isinstance(subs, list) else subs
+
+        def check_call(label, graphs, kind, call, args, ref, same, prev,
+                       solve=True):
+            """One stateful call, checked; returns (result, wall)."""
+            zero_launches()
+            kinds, got, wall = stateful_call(graphs, call, *args)
+            launches = launches_run()
+            where = f"{label}, {kind} call"
+            if set(kinds) != {kind}:
+                raise AssertionError(f"{where}: the cache made {dict(kinds)}")
+            if prev is not None and tree_differences(*prev):
+                raise AssertionError(f"{where} overwrote the previous "
+                                     f"call's result in "
+                                     f"{tree_differences(*prev)}")
+            if graph_cache.held(CARD_DEVICE) > graph_cache.MAX_GRAPHS:
+                raise AssertionError(f"{where}: {graph_cache.held(CARD_DEVICE)} "
+                                     f"graphs on the card, bound "
+                                     f"{graph_cache.MAX_GRAPHS}")
+            differ = same(got, ref)
+            if differ:
+                raise AssertionError(f"{where} differs from the uncached "
+                                     f"body in {differ}")
+            if solve and launches != solve_launches(got):
+                raise AssertionError(f"{where}: {launches} launches for "
+                                     f"{solve_launches(got)} subcycles")
+            launch_total[0] += launches
+            return got, wall
+
+        def run_entry(label, cd, graphs, call, inputs, refs=None,
+                      same=tree_differences, solve=True, recapture=True):
+            """The calls (eager "a", capture "a", replay "b", replay "a")
+            of ``call(*inputs[tag])``, each against the uncached call (or
+            ``refs[tag]``); then a_value changed (a solve at dt
+            DT_NEW_KEY): a new key, eager (and, where ``recapture``,
+            captured at its second call)."""
+            refs = {} if refs is None else refs
+            walls = collections.defaultdict(list)
+            first_capture = len(captures)
+            prev = None
+            for kind, tag in (("eager", "a"), ("capture", "a"),
+                              ("replay", "b"), ("replay", "a")):
+                if tag not in refs:
+                    with uncached():
+                        refs[tag] = call(*inputs[tag])
+                got, wall = check_call(label, graphs, kind, call,
+                                       inputs[tag], refs[tag], same, prev,
+                                       solve)
+                walls[kind].append(wall)
+                prev = (got, tree_clone(got))
+            keys = graphs.keys()
+            a_value = cd.a_value
+            cd.a_value = A_VALUE_CHANGED
+            cd.refresh_units()
+            new_args = (inputs["a"][:-1] + (DT_NEW_KEY,) if solve
+                        else inputs["a"])
+            try:
+                kinds, _, wall = stateful_call(graphs, call, *new_args)
+                new = [f"a_value {A_VALUE_CHANGED}"
+                       + (f", dt {DT_NEW_KEY}" if solve else "")
+                       + f": {dict(kinds)} {wall:.4f} s"]
+                if set(kinds) != {"eager"} or graphs.keys() != keys:
+                    raise AssertionError(f"{label}: a changed a_value made "
+                                         f"{dict(kinds)}, keys "
+                                         f"{len(keys)} -> "
+                                         f"{len(graphs.keys())}")
+                if recapture:
+                    kinds, _, wall = stateful_call(graphs, call,
+                                                   *new_args)
+                    new.append(f"then {dict(kinds)} {wall:.4f} s")
+                    if (set(kinds) != {"capture"}
+                            or len(set(graphs.keys()) - set(keys)) != 1):
+                        raise AssertionError(f"{label}: the changed "
+                                             f"a_value's second call made "
+                                             f"{dict(kinds)}")
+            finally:
+                cd.a_value = a_value
+                cd.refresh_units()
+            report(label, walls, first_capture,
+                   f"; a new key: {', '.join(new)}; {len(graphs)} graphs "
+                   f"of the context, {graph_cache.held(CARD_DEVICE)} on the card "
+                   f"(bound {graph_cache.MAX_GRAPHS}); every call "
+                   f"bit-identical to "
+                   f"the uncached body, no earlier result overwritten")
+            return refs
+
+        def flagship_pair(cd, seed, dt):
+            return (flagship_fields(cd, N_FLAGSHIP, seed=seed), dt)
+
+        launches_dev = torch.zeros((), dtype=torch.int64, device="cuda")
+        device_loop.device_launches = launches_dev
+        real_capture = graph_cache._capture
+        graph_cache._capture = lambda body, inputs: capture_measured(
+            body, inputs, captures)
+        try:
+            # the f64 flagship on the compacted path, and the five
+            # derived fields on its state
+            cd = flagship_chem(64, "cuda")
+            if solve_path(cd.config, N_FLAGSHIP) != "compact":
+                raise AssertionError("the flagship is not compacted")
+            graphs = cd.context.graphs
+            inputs = {"a": flagship_pair(cd, 11, DT_FLAGSHIP),
+                      "b": flagship_pair(cd, 12, DT_REPLAY)}
+            flag_refs = run_entry(
+                f"f64 flagship, compacted, {N_FLAGSHIP} cells, dt "
+                f"{DT_FLAGSHIP} then {DT_REPLAY}", cd, graphs,
+                cd.solve_chemistry, inputs, recapture=False)
+            for name in GRID_DERIVED:
+                run_entry(f"calculate_{name}, {N_FLAGSHIP} cells", cd,
+                          graphs, getattr(cd, f"calculate_{name}"),
+                          {tag: (pair[0],) for tag, pair in inputs.items()},
+                          solve=False)
+            del cd, graphs
+
+            # exact tabulated cooling
+            cd = answer_chem("cuda", primordial_chemistry=0,
+                             metal_cooling=1, exact_cooling=1)
+            run_entry(f"exact cooling, {N_FLAGSHIP} cells, dt {DT_EXACT} "
+                      f"then {2 * DT_EXACT}", cd, cd.context.graphs,
+                      cd.solve_chemistry,
+                      {"a": (tabulated_state(cd, N_FLAGSHIP), DT_EXACT),
+                       "b": (tabulated_state(cd, N_FLAGSHIP, seed=10),
+                             2 * DT_EXACT)})
+            del cd
+            torch.cuda.empty_cache()
+
+            # phase 4e's old-style rank-5 chemistry 1
+            cd = old_style_chem("cuda", 5)
+            run_entry(f"old-style rank 5, chemistry 1, {N_FLAGSHIP} cells, "
+                      f"dt {DT_FLAGSHIP} then {DT_REPLAY}", cd,
+                      cd.context.graphs, cd.solve_chemistry,
+                      {"a": (answer_state(cd, n=N_FLAGSHIP), DT_FLAGSHIP),
+                       "b": (answer_state(cd, n=N_FLAGSHIP, seed=5),
+                             DT_REPLAY)}, recapture=False)
+            del cd
+
+            # chemistry 2, the UVB and H2 self-shielding 1 on phase 3's
+            # ghost-zoned grid
+            cd = answer_chem("cuda", primordial_chemistry=2,
+                             UVbackground=1, H2_self_shielding=1)
+            grid = {tag: (grid_fields(cd, seed=seed)[0], dt)
+                    for tag, seed, dt in (("a", 11, GRID_DT),
+                                          ("b", 12, 2 * GRID_DT))}
+            run_entry(f"solve_chemistry_grid, chemistry 2, UVB, H2 "
+                      f"self-shielding 1, {GRID_SHAPE} grid, dt {GRID_DT} "
+                      f"then {2 * GRID_DT}", cd, cd.context.graphs,
+                      lambda f, dt: cd.solve_chemistry_grid(
+                          f, dt, grid_start=GRID_START, grid_end=GRID_END,
+                          grid_dx=GRID_DX), grid)
+            del cd
+
+            self.cell_replays(check_call, report, captures)
+
+            # the flagship on N_SHARDS shards of the card, each under its
+            # own key, against the flagship's uncached whole solves
+            cd = flagship_chem(64, "cuda")
+            mesh = make_cell_mesh(["cuda:0"] * N_SHARDS)
+            width = N_FLAGSHIP // N_SHARDS
+            if solve_path(cd.config, width) != "compact":
+                raise AssertionError(f"a {width}-cell shard is not "
+                                     f"compacted ({_compact_batch(width)})")
+
+            def cells(res):
+                return (res[0], res[1]["cell_iterations"],
+                        res[1]["converged"])
+
+            run_entry(f"{N_SHARDS} shards of {width} cells, against the "
+                      f"whole flagship's uncached solves", cd,
+                      cd.context.graphs,
+                      lambda f, dt: solve_chemistry_sharded(
+                          cd.context, f, dt, mesh),
+                      inputs, refs=flag_refs,
+                      same=lambda got, ref: tree_differences(cells(got),
+                                                             cells(ref)),
+                      recapture=False)
+            del cd, flag_refs, inputs
+        finally:
+            graph_cache._capture = real_capture
+            device_loop.device_launches = None
+        torch.cuda.synchronize()
+        parts.append(released_pools(pools_before))
+        print(f"[4n pools] {parts[-1]}", flush=True)
+        self.path_launches["stateful_replays"] = launch_total[0]
+        loop = int(launches_dev)
+        self.loop["launches"] = (self.loop["launches"] or 0) + loop
+        parts.append(f"stateful calls: {launch_total[0]} network kernel "
+                     f"launches (host and replayed), {loop} loop kernel "
+                     f"launches in the replays (counted on the device)")
+        return "; ".join(parts)
+
+    def cell_replays(self, check_call, report, captures):
+        """Phase 4n's one-cell entry: CELL_STEPS steps of the cooling_cell
+        example's cell (its state, dt = 1% of its first cooling time),
+        each step's result fed back in, each against the uncached body;
+        then the cell at widths 2 to the bound + 1, two calls each (eager,
+        capture), so that the least recently used graphs go; a changed
+        a_value is a new key."""
+        import torch
+
+        from grackle_tpu_torch import (chemistry_data, graph_cache,
+                                       setup_fluid_container)
+        from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+        from grackle_tpu_torch.utilities.physical_constants import (
+            cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
+
+        cc = chemistry_data()
+        cc.use_grackle = 1
+        cc.with_radiative_cooling = 1
+        cc.primordial_chemistry = 0
+        cc.metal_cooling = 1
+        cc.UVbackground = 1
+        cc.comoving_coordinates = 0
+        cc.a_units = 1.0
+        cc.a_value = 1.0
+        cc.density_units = mass_hydrogen_cgs
+        cc.length_units = cm_per_mpc
+        cc.time_units = sec_per_Myr
+        fc = setup_fluid_container(
+            cc, density=0.1 * mass_hydrogen_cgs,
+            temperature=np.array([1.0e6]), metal_mass_fraction=0.02041,
+            converge=False, verbose=False, device="cuda",
+            cloudy_data=synthetic_cloudy_groups())
+        graphs = cc.context.graphs
+        fields = device_fields(fc._solver_fields())
+        dt = 0.01 * abs(float(cc.calculate_cooling_time(fields)[0]))
+        walls = collections.defaultdict(list)
+        first_capture = len(captures)
+        prev = None
+        for step in range(CELL_STEPS):
+            kind = CALL_KINDS[min(step, 2)]
+            with uncached():
+                ref = cc.solve_chemistry(fields, dt)
+            got, wall = check_call(f"cooling_cell step {step}", graphs,
+                                   kind, cc.solve_chemistry, (fields, dt),
+                                   ref, tree_differences, prev)
+            walls[kind].append(wall)
+            # the fields passed in are the last step's results
+            prev = (got, tree_clone(got))
+            fields = got[0]
+        if [len(walls[k]) for k in CALL_KINDS] != [1, 1, CELL_STEPS - 2]:
+            raise AssertionError(f"cooling_cell: calls {dict(walls)}")
+        label = f"{CELL_STEPS} cooling_cell steps, 1 cell, dt {dt:.6g}"
+        # as many new widths as the bound: every capture past the bound
+        # drops the least recently used graph, the one-cell step's first
+        widths = range(2, graph_cache.MAX_GRAPHS + 2)
+        for width in widths:
+            cell = {k: v.expand(width).contiguous()
+                    for k, v in fields.items()}
+            with uncached():
+                ref = cc.solve_chemistry(cell, dt)
+            for kind in ("eager", "capture"):
+                check_call(f"cooling_cell width {width}", graphs, kind,
+                           cc.solve_chemistry, (cell, dt), ref,
+                           tree_differences, None)
+        if len(graphs) != graph_cache.MAX_GRAPHS:
+            raise AssertionError(f"cooling_cell: {len(graphs)} graphs after "
+                                 f"{len(widths)} widths, bound "
+                                 f"{graph_cache.MAX_GRAPHS}")
+        keys = graphs.keys()
+        cc.a_value = A_VALUE_CHANGED
+        kinds, _, _ = stateful_call(graphs, cc.solve_chemistry, fields, dt)
+        kinds2, _, _ = stateful_call(graphs, cc.solve_chemistry, fields, dt)
+        if (set(kinds) != {"eager"} or set(kinds2) != {"capture"}
+                or graphs.keys()[:-1] != keys[1:]):
+            raise AssertionError(f"cooling_cell: a changed a_value made "
+                                 f"{dict(kinds)} then {dict(kinds2)}")
+        cc.a_value = 1.0
+        cycle = self.width_cycle(cc, fields, dt, check_call)
+        report(label, walls, first_capture,
+               f"; widths 2 to {widths[-1]}, eager then captured: "
+               f"{len(graphs)} graphs kept (bound "
+               f"{graph_cache.MAX_GRAPHS}), the "
+               f"least recently used dropped; a_value {A_VALUE_CHANGED}: "
+               f"eager, then captured; {cycle}; every call "
+               f"bit-identical to the uncached body, no earlier result "
+               f"overwritten")
+        del cc, fc, graphs
+
+    def width_cycle(self, cc, fields, dt, check_call):
+        """A host cycling through more widths than the card's bound on
+        graphs: the cooling_cell state at each of CYCLE_WIDTHS, one step
+        each, for CYCLE_ROUNDS rounds, every call against the uncached
+        body (whose wall is the parent's, which cached nothing).  The
+        first round runs eagerly; from the second, the first
+        MAX_GRAPHS widths capture and then replay, and the rest stay
+        eager, since capturing them would drop a graph used since their
+        last call (graph_cache.py).  Returns the message: per round the
+        kinds of call and the mean wall per call, cached and uncached."""
+        import torch
+
+        from grackle_tpu_torch import graph_cache
+
+        bound = graph_cache.MAX_GRAPHS
+        fit = len(CYCLE_WIDTHS[:bound])
+        rounds = []
+        for r in range(CYCLE_ROUNDS):
+            expect = (["eager"] * len(CYCLE_WIDTHS) if r == 0 else
+                      [("capture" if r == 1 else "replay")] * fit
+                      + ["eager"] * (len(CYCLE_WIDTHS) - fit))
+            cached, plain = [], []
+            for width, kind in zip(CYCLE_WIDTHS, expect):
+                cell = {k: v.expand(width).contiguous()
+                        for k, v in fields.items()}
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with uncached():
+                    ref = cc.solve_chemistry(cell, dt)
+                torch.cuda.synchronize()
+                plain.append(time.time() - t0)
+                _, wall = check_call(f"width cycle round {r}, {width} "
+                                     f"cells", cc.context.graphs, kind,
+                                     cc.solve_chemistry, (cell, dt), ref,
+                                     tree_differences, None)
+                cached.append(wall)
+            rounds.append(f"round {r + 1}: "
+                          + ", ".join(f"{expect.count(k)} {k}"
+                                      for k in CALL_KINDS if k in expect)
+                          + f", {np.mean(cached):.4f} s a call (uncached "
+                          f"{np.mean(plain):.4f} s)")
+        msg = (f"a host cycling through {len(CYCLE_WIDTHS)} widths "
+               f"({CYCLE_WIDTHS[0]} to {CYCLE_WIDTHS[-1]} cells), bound "
+               f"{bound}: " + "; ".join(rounds))
+        print(f"[4n width cycle] {msg} ({self.card})", flush=True)
+        return msg
 
     def profiled_kernel(self):
         """The kernel line's launch (f64 flagship inputs at subcycle
@@ -1888,11 +2493,10 @@ class Smoke:
 
     def monolithic(self):
         """One monolithic f64 flagship solve (solver_compaction = 0, no
-        warm-up): its fields and per-cell subcycle counts must equal the
-        compacted f64 solve of phase 4 bit for bit."""
+        warm-up), the uncached body (no graph): its fields and per-cell
+        subcycle counts must equal phase 4's replayed compacted f64 solve
+        bit for bit."""
         import torch
-
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
         if getattr(self, "compact64", None) is None:
             raise AssertionError("phase 4 f64 did not complete")
@@ -1900,12 +2504,13 @@ class Smoke:
         cd = flagship_chem(64, "cuda", solver_compaction=0)
         fields = flagship_fields(cd, N_FLAGSHIP)
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
-        new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
+        with uncached():
+            new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         if diag["trips"] != 0 or launches != diag["subcycles"]:
             raise AssertionError(f"monolithic: {diag['trips']} trips, "
                                  f"{launches} launches for "
@@ -1916,16 +2521,20 @@ class Smoke:
                                  f"{differ}")
         self.mono64 = (new_f, diag)
         self.mono64_wall = wall
-        return (f"f64 monolithic {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
-                f"cells/s, {launches} launches) against compacted "
-                f"{comp_wall:.3f} s ({comp_d['subcycles']} launches, "
+        return (f"f64 monolithic, eager (uncached), {wall:.3f} s "
+                f"({N_FLAGSHIP / wall:.0f} cells/s, {launches} launches) "
+                f"against phase 4's compacted replay {comp_wall:.3f} s "
+                f"({comp_d['subcycles']} launches, "
                 f"{comp_d['trips']} trips): {len(new_f)} fields and "
                 f"cell_iterations bit-identical")
 
     def exact(self, precision):
         """Exact-integration tabulated cooling (exact_cooling = 1, metal
-        cooling) on N_FLAGSHIP cells at DT_EXACT: wall seconds after one
-        warm-up, cells/s and peak CUDA memory, with no kernel launch; the
+        cooling) on N_FLAGSHIP cells at DT_EXACT through the stateful
+        API: three calls of one context (eager, capturing, replayed; the
+        replay timed, each bit-identical to the first), cells/s, the
+        eager call's peak CUDA memory and the graph's pool, with no
+        kernel launch; the
         subcycled tabulated solve of the same state beside it (median
         within EXACT_VS_SUBCYCLED, its furthest cells against the refined
         solve); the first N_CPU_CHECK cells against the port's CPU run
@@ -1933,7 +2542,6 @@ class Smoke:
         import torch
 
         from grackle_tpu_torch.api import solve_path
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
         def chem(device, exact):
             return answer_chem(device, precision=precision,
@@ -1944,26 +2552,39 @@ class Smoke:
         if solve_path(cd.config, N_FLAGSHIP) != "exact":
             raise AssertionError("exact_cooling = 1 does not take 'exact'")
         fields = tabulated_state(cd, N_FLAGSHIP)
-        cd.solve_chemistry(fields, DT_EXACT)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        network_update_cuda.launches = 0
-        t0 = time.time()
-        new_f, diag = cd.solve_chemistry(fields, DT_EXACT)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        graphs = cd.context.graphs
+        walls, first = [], None
+        for kind in CALL_KINDS:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            kinds, (new_f, diag), wall = stateful_call(
+                graphs, cd.solve_chemistry, fields, DT_EXACT)
+            if kind == "eager":
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                first = (new_f, diag)
+            differ = tree_differences((new_f, diag), first)
+            if kinds != {kind: 1} or differ:
+                raise AssertionError(f"f{precision} exact: call "
+                                     f"{len(walls) + 1} was {dict(kinds)}, "
+                                     f"not {kind}, differs in {differ}")
+            walls.append(wall)
+        del first
+        graph_pool = pool_bytes(graphs.entry(graphs.keys()[0]).graph.pool())
+        eager_s, capture_s, wall = walls
         energy = new_f["energy"]
-        if (network_update_cuda.launches or diag["subcycles"]
+        if (launches_run() or diag["subcycles"]
                 or energy.shape != (N_FLAGSHIP,)
                 or not bool(torch.isfinite(energy).all())):
             raise AssertionError(f"f{precision} exact: bad output or a "
                                  f"kernel launch")
+        del cd, graphs
+        torch.cuda.empty_cache()
 
         sub = chem("cuda", 0)
         torch.cuda.synchronize()
         t0 = time.time()
-        sub_f, sub_d = sub.solve_chemistry(fields, DT_EXACT)
+        with uncached():
+            sub_f, sub_d = sub.solve_chemistry(fields, DT_EXACT)
         torch.cuda.synchronize()
         sub_wall = time.time() - t0
         if precision == 64:
@@ -1995,9 +2616,14 @@ class Smoke:
         head = {k: v[:N_CPU_CHECK] for k, v in fields.items()}
         cpu = chem("cpu", 1).solve_chemistry(head, DT_EXACT)[0]["energy"]
         cpu_err = max_rel(energy[:N_CPU_CHECK], cpu)
-        msg = (f"f{precision} exact, {N_FLAGSHIP} cells dt {DT_EXACT}: "
-               f"{wall:.3f} s, {N_FLAGSHIP / wall:.0f} cells/s, peak "
-               f"{peak:.2f} GiB, 0 kernel launches; subcycled {sub_wall:.3f}"
+        gib = ("not measured" if graph_pool is None
+               else f"{graph_pool / 2**30:.2f} GiB")
+        msg = (f"f{precision} exact, {N_FLAGSHIP} cells dt {DT_EXACT}, "
+               f"timed call: a replay, {wall:.4f} s, {N_FLAGSHIP / wall:.0f} "
+               f"cells/s (eager first call {eager_s:.4f} s, peak "
+               f"{peak:.2f} GiB; capturing second call {capture_s:.3f} s; "
+               f"graph pool {gib}; all three bit-identical), 0 kernel "
+               f"launches; subcycled, eager (uncached), {sub_wall:.3f}"
                f" s ({sub_d['subcycles']} subcycles, {sub_d['trips']} "
                f"trips); exact vs subcycled rel median {median:.2e} "
                f"(bound {EXACT_VS_SUBCYCLED['median']:.0e}), max "
@@ -2024,7 +2650,6 @@ class Smoke:
         import torch
 
         import grackle_tpu_torch.functional as gfn
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
         if getattr(self, "compact64", None) is None:
             raise AssertionError("phase 4 f64 did not complete")
@@ -2033,12 +2658,12 @@ class Smoke:
         solve = gfn.make_solve_fn(cd)
         fields = flagship_fields(cd, N_FLAGSHIP)
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
         new_f, diag = solve(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         if launches != diag["subcycles"] or launches == 0:
             raise AssertionError(f"functional: {launches} launches for "
                                  f"{diag['subcycles']} subcycles")
@@ -2049,8 +2674,9 @@ class Smoke:
         self.path_launches["functional"] = launches
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
-                f"{diag['trips']} trips) against the stateful compacted "
-                f"{comp_wall:.3f} s: {len(new_f)} fields and "
+                f"{diag['trips']} trips) against phase 4's stateful "
+                f"compacted calls (eager {self.compact64_eager:.3f} s, "
+                f"replay {comp_wall:.3f} s): {len(new_f)} fields and "
                 f"cell_iterations bit-identical")
 
     def old_style(self):
@@ -2062,20 +2688,18 @@ class Smoke:
         ANSWER_RTOL."""
         import torch
 
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
-
         cd = old_style_chem("cuda", 5)
         if cd.context.cloudy_data_new or cd.context.cloudy_metal.grid_rank \
                 != 5:
             raise AssertionError("the rank-5 old-style table was not read")
         fields = answer_state(cd, n=N_FLAGSHIP)
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         for key, val in new_f.items():
             if val.shape != (N_FLAGSHIP,) or not bool(
                     torch.isfinite(val).all()):
@@ -2110,7 +2734,6 @@ class Smoke:
 
         from grackle_tpu_torch import serialization
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
         if getattr(self, "flagship64", None) is None:
             raise AssertionError("phase 4 f64 did not complete")
@@ -2123,12 +2746,12 @@ class Smoke:
             raise AssertionError("the restored parameters differ")
         fields = flagship_fields(cd, N_FLAGSHIP)
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         differ = bit_differences(new_f, diag, comp_f, comp_d)
         if differ or launches != comp_d["subcycles"]:
             raise AssertionError(f"restored vs phase 4: {launches} launches "
@@ -2151,7 +2774,6 @@ class Smoke:
         import torch
 
         from grackle_tpu_torch.api import solve_path
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
         from grackle_tpu_torch.parallel.sharding import (
             make_cell_mesh, solve_chemistry_sharded)
 
@@ -2166,13 +2788,13 @@ class Smoke:
                                  f"compacted path")
         fields = flagship_fields(cd, N_FLAGSHIP)
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
         new_f, diag = solve_chemistry_sharded(cd.context, fields,
                                               DT_FLAGSHIP, mesh)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         differ = bit_differences(new_f, diag, mono_f, mono_d)
         if (differ or launches != sum(diag["subcycles"])
                 or not all(diag["trips"])):
@@ -2202,14 +2824,15 @@ class Smoke:
         cooling_rate with chemistry 0-3 and both freefall cases in full,
         cooling_cell over its first COOLING_CELL_STEPS steps, against
         tests/answers/examples at rtol ANSWER_RTOL; wall seconds, seconds
-        a step (a solve_chemistry call) and kernel launches of each."""
+        a step (a solve_chemistry call: the first of each width eager, the
+        second captured, the rest replays, as each step's line counts
+        them) and kernel launches of each, the replays' included."""
         import torch
 
         from grackle_tpu_torch import api
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
         from grackle_tpu_torch.examples import (cooling_cell, cooling_rate,
                                                 freefall)
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
         from grackle_tpu_torch.utilities.physical_constants import (
             sec_per_Myr)
 
@@ -2232,36 +2855,43 @@ class Smoke:
                                               cloudy_data=tables,
                                               verbose=False)))
 
-        # each example's steps are its solve_chemistry calls
+        # each example's steps are its solve_chemistry calls, and the
+        # graph cache says what kind of call each was
         calls = [0]
+        kinds = collections.Counter()
         solve = api.ChemistryData.solve_chemistry
 
         def counted(cd, *args, **kw):
             calls[0] += 1
-            return solve(cd, *args, **kw)
+            before = cd.context.graphs.calls.copy()
+            out = solve(cd, *args, **kw)
+            kinds.update(cd.context.graphs.calls - before)
+            return out
 
         parts, failed, total = [], [], 0
         api.ChemistryData.solve_chemistry = counted
         try:
             for tag, steps, run in runs:
                 calls[0] = 0
-                network_update_cuda.launches = 0
+                kinds.clear()
+                zero_launches()
                 t0 = time.time()
                 # the equilibrium loop writes its progress to stderr
                 with contextlib.redirect_stderr(io.StringIO()):
                     out = run()
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-                launches = network_update_cuda.launches
+                launches = launches_run()
                 total += launches
                 worst = max(answer_errors(f"examples/{tag}", out,
                                           steps).values())
                 span = "in full" if steps is None else \
                     f"first {steps} of {len(stored['time'])} steps"
                 parts.append(
-                    f"{tag} ({span}) {wall:.2f} s, {calls[0]} steps, "
-                    f"{wall / max(calls[0], 1):.4f} s a step, {launches} "
-                    f"launches, max rel {worst:.2e}")
+                    f"{tag} ({span}) {wall:.2f} s, {calls[0]} steps ("
+                    + ", ".join(f"{kinds[k]} {k}" for k in CALL_KINDS)
+                    + f"), {wall / max(calls[0], 1):.4f} s a step, "
+                    f"{launches} launches, max rel {worst:.2e}")
                 # cooling_rate with chemistry 0 runs no solve
                 if worst > ANSWER_RTOL or (calls[0] and not launches):
                     failed.append(tag)
@@ -2350,7 +2980,6 @@ class Smoke:
         from grackle_tpu_torch.data.synthetic import (
             synthetic_cloudy_groups, synthetic_old_style_groups)
         from grackle_tpu_torch.examples import common, cooling_rate
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
 
         parts = []
         path = os.path.join(H5_FIXTURES, "synthetic_gz.h5")
@@ -2381,7 +3010,7 @@ class Smoke:
         try:
             if common.get_data_file() != path:
                 raise AssertionError("GRACKLE_DATA_FILE not taken")
-            network_update_cuda.launches = 0
+            zero_launches()
             t0 = time.time()
             with contextlib.redirect_stderr(io.StringIO()):
                 out = cooling_rate.run(1, device="cuda", verbose=False)
@@ -2392,7 +3021,7 @@ class Smoke:
                 del os.environ["GRACKLE_DATA_FILE"]
             else:
                 os.environ["GRACKLE_DATA_FILE"] = before
-        launches = network_update_cuda.launches
+        launches = launches_run()
         worst = max(answer_errors("examples/cooling_rate_chem1",
                                   out).values())
         parts.append(f"cooling_rate chemistry 1 from GRACKLE_DATA_FILE="
@@ -2412,15 +3041,13 @@ class Smoke:
         seconds, launches, the count of fields)."""
         import torch
 
-        from grackle_tpu_torch.ops.network_kernel import network_update_cuda
-
         torch.cuda.synchronize()
-        network_update_cuda.launches = 0
+        zero_launches()
         t0 = time.time()
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = network_update_cuda.launches
+        launches = launches_run()
         differ = bit_differences(new_f, diag, *ref)
         if differ or launches != diag["subcycles"] or launches == 0:
             raise AssertionError(f"{what}: {launches} launches for "
@@ -2652,6 +3279,7 @@ def main() -> int:
     smoke.phase("4k host programs", smoke.hosts)
     smoke.phase("4l data files written", smoke.data_written)
     smoke.phase("4m captured CUDA graphs", smoke.captured)
+    smoke.phase("4n stateful API replayed", smoke.stateful_replays)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())

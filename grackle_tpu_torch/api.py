@@ -17,7 +17,9 @@ src/python/pygrackle/grackle_wrapper.pyx:22-1051):
 * :func:`solve_chemistry` (grackle.h:64), :func:`solve_chemistry_grid`,
   and the derived fields ``calculate_cooling_time``,
   ``calculate_temperature``, ``calculate_pressure``, ``calculate_gamma``
-  and ``calculate_dust_temperature`` (grackle.h:52-102).
+  and ``calculate_dust_temperature`` (grackle.h:52-102).  On the card
+  each is captured into a CUDA graph at its second call with a key and
+  replayed after (graph_cache.py), as the JAX package jits them.
 
 ``solve_path`` names the same three paths as the JAX package: 'compact'
 (converged-cell compaction, used when ``solver_compaction > 0`` and
@@ -35,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import graph_cache
 from .config import PARAMETER_REGISTRY, ChemistryConfig, resolve_config
 from .data.cloudy import (CloudyTable, empty_cloudy_table, is_old_style,
                           load_cloudy_table)
@@ -63,6 +66,9 @@ class GrackleContext:
     uvb: Any = None  # data/uvb.UVBTable on the host, or None
     cloudy_data_new: bool = True
     device: Any = "cuda"
+    #: the captured graphs of the stateful calls (graph_cache.py)
+    graphs: graph_cache.GraphCache = dataclasses.field(
+        default_factory=graph_cache.GraphCache, repr=False, compare=False)
 
 
 def resolve_device(device) -> torch.device:
@@ -218,6 +224,10 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     l_h2shield: optional precomputed per-cell shielding length (cgs) for
     H2_self_shielding == 1, which :func:`solve_chemistry_grid` computes
     on the full grid, ghost zones included.
+
+    On the card the solve goes through the context's graph cache
+    (:func:`solve_cached`): eager at the first call with a key, captured
+    at the second, replayed after, the results fresh tensors each time.
     """
     cfg = ctx.config
     f, imetal = _prep_fields(ctx, fields)
@@ -239,7 +249,7 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     # unit scalars and UVB photo rates are per-call host work, as the
     # reference computes them in C per call
     pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
-    new_f, diagnostics = solve_prepared(ctx, us, pr, f, dt, imetal, l_h2)
+    new_f, diagnostics = solve_cached(ctx, us, pr, f, dt, imetal, l_h2)
     # the stateful call reports its counts as Python ints
     for key in ("subcycles", "trips"):
         diagnostics[key] = int(diagnostics[key])
@@ -262,11 +272,43 @@ def shield_length_tensor(ctx: GrackleContext, l_h2shield):
         device=ctx.device, dtype=solver_dtype(ctx.config)).reshape(-1)
 
 
+def _field_key(f):
+    return tuple(sorted((key, tuple(val.shape)) for key, val in f.items()))
+
+
+def _key(ctx, entry, f, us, pr=None):
+    """The graph-cache key of a call: what its graph bakes in besides
+    its inputs' values (graph_cache.py)."""
+    return (entry, _field_key(f), solver_dtype(ctx.config), "metal" in f,
+            bool(ctx.units.comoving_coordinates), ctx.units, us, pr)
+
+
+def solve_cached(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
+                 l_h2shield=None, graphs=None, part=None):
+    """:func:`solve_prepared` through a graph cache (graph_cache.run):
+    the context's own unless ``graphs`` names another (a shard's solve
+    on a copy of its context keeps its graphs in the original's),
+    ``part`` added to the key (a shard's index)."""
+    dt = as_dt(dt, f["density"])
+    n = f["density"].shape[0] if f["density"].ndim == 1 else 0
+    own = graphs is None or graphs is ctx.graphs
+    key = _key(ctx, "solve", f, us, pr) + (
+        solve_path(ctx.config, n), l_h2shield is not None, part)
+    (new_f, diag), _ = graph_cache.run(
+        ctx.graphs if own else graphs, key,
+        lambda inp: solve_prepared(ctx, us, pr, inp["fields"], inp["dt"],
+                                   imetal, inp["l_h2"]),
+        {"fields": f, "dt": dt, "l_h2": l_h2shield},
+        keep=None if own else ctx)
+    return new_f, diag
+
+
 def solve_prepared(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
                    l_h2shield=None):
     """The solve on prepared tensors ``f`` with this call's unit scalars
     and photo rates, on the path :func:`solve_path` picks: the body
-    shared by :func:`solve_chemistry` and functional.make_solve_fn.
+    shared by :func:`solve_chemistry` (which captures it through
+    :func:`solve_cached`) and functional.make_solve_fn, never cached.
     ``dt`` is a float or a 0-d tensor on the fields' device
     (ops/common.as_dt); ``subcycles`` and ``trips`` are Python ints when
     eager and 0-d tensors inside a CUDA-graph capture."""
@@ -373,44 +415,57 @@ def solve_chemistry_grid(ctx: GrackleContext, fields, dt,
     return out, diag
 
 
-def calculate_cooling_time(ctx: GrackleContext, fields):
+def _derived_cached(ctx, name, fields, body, pr=None):
+    """``body(f, us, imetal)`` of the prepared fields, this call's unit
+    scalars and whether the metal field is given, through the context's
+    graph cache (graph_cache.run); ``pr``, where the body reads photo
+    rates, goes into the key."""
     f, imetal = _prep_fields(ctx, fields)
     us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    out, _ = graph_cache.run(
+        ctx.graphs, _key(ctx, name, f, us, pr),
+        lambda inp: body(inp["fields"], us, imetal), {"fields": f})
+    return out
+
+
+def calculate_cooling_time(ctx: GrackleContext, fields):
     pr = _photo_rates(ctx.config, ctx.tables, ctx.uvb, ctx.units)
-    return _derived.calculate_cooling_time(
-        ctx.config, ctx.tables, ctx.cloudy_primordial, ctx.cloudy_metal,
-        pr, us, f, imetal=imetal, cloudy_data_new=ctx.cloudy_data_new,
-        comoving=bool(ctx.units.comoving_coordinates),
-    )
+    return _derived_cached(
+        ctx, "cooling_time", fields,
+        lambda f, us, imetal: _derived.calculate_cooling_time(
+            ctx.config, ctx.tables, ctx.cloudy_primordial,
+            ctx.cloudy_metal, pr, us, f, imetal=imetal,
+            cloudy_data_new=ctx.cloudy_data_new,
+            comoving=bool(ctx.units.comoving_coordinates)), pr)
 
 
 def calculate_temperature(ctx: GrackleContext, fields):
-    f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    return _derived.calculate_temperature(ctx.config, ctx.cloudy_primordial,
-                                          us, f, imetal)
+    return _derived_cached(
+        ctx, "temperature", fields,
+        lambda f, us, imetal: _derived.calculate_temperature(
+            ctx.config, ctx.cloudy_primordial, us, f, imetal))
 
 
 def calculate_pressure(ctx: GrackleContext, fields):
-    f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    return _derived.calculate_pressure(ctx.config, us, f, imetal)
+    return _derived_cached(
+        ctx, "pressure", fields,
+        lambda f, us, imetal: _derived.calculate_pressure(
+            ctx.config, us, f, imetal))
 
 
 def calculate_gamma(ctx: GrackleContext, fields):
-    f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    return _derived.calculate_gamma(ctx.config, ctx.cloudy_primordial, us,
-                                    f, imetal)
+    return _derived_cached(
+        ctx, "gamma", fields,
+        lambda f, us, imetal: _derived.calculate_gamma(
+            ctx.config, ctx.cloudy_primordial, us, f, imetal))
 
 
 def calculate_dust_temperature(ctx: GrackleContext, fields):
-    f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    return _derived.calculate_dust_temperature(
-        ctx.config, ctx.tables, ctx.cloudy_primordial, us, f, ctx.units,
-        imetal,
-    )
+    return _derived_cached(
+        ctx, "dust_temperature", fields,
+        lambda f, us, imetal: _derived.calculate_dust_temperature(
+            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f,
+            ctx.units, imetal))
 
 
 class ChemistryData:

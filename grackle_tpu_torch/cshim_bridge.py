@@ -14,7 +14,9 @@ The device is ``GRACKLE_TPU_TORCH_DEVICE`` (default ``cuda``); on a host
 without a card initialization raises, so the C call returns failure: it
 never falls back to the CPU.  A host's solves run in its own process:
 with ``GRACKLE_TPU_TORCH_LAUNCH_LOG`` naming a file, each solve writes
-there the network kernel's launches of the process so far.
+there the network kernel's launches of the process so far, those of the
+replayed graphs included, counted on the device (graph_cache.py: a
+context's second solve of a width captures, later ones replay).
 
 Handles: every initialized context gets an integer handle (the analogue of
 the reference's ``chemistry_data_storage``); the global-API variants use
@@ -187,6 +189,11 @@ def solve_chemistry(handle: int, units: dict, grid: dict,
             l_h2 = _host(sobolev_shield_length(
                 d_full, us.xbase1, us.dx_cgs
             )).reshape(-1)[sel]
+    log = os.environ.get("GRACKLE_TPU_TORCH_LAUNCH_LOG")
+    if log:
+        from .ops.network_kernel import count_replays
+
+        count_replays(cd._require_context().device)
     new_f, _ = cd.solve_chemistry(
         fields, dt, grid_dx=grid.get("grid_dx", 0.0),
         grid_shape=grid_shape, l_h2shield=l_h2,
@@ -202,12 +209,12 @@ def solve_chemistry(handle: int, units: dict, grid: dict,
             views[cname][:] = out
         else:
             views[cname][sel] = out
-    log = os.environ.get("GRACKLE_TPU_TORCH_LAUNCH_LOG")
     if log:
-        from .ops.network_kernel import network_update_cuda
+        from .ops.network_kernel import network_update_cuda, replayed_launches
 
         with open(log, "w") as fh:
-            fh.write(str(network_update_cuda.launches))
+            fh.write(str(network_update_cuda.launches
+                         + replayed_launches()))
     return 1
 
 

@@ -386,16 +386,64 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
 
 def network_update_cuda(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     """ops/network.py ``network_update`` as one CUDA launch; same
-    arguments, same returned carry.  Counts each launch in
-    ``network_update_cuda.launches``."""
+    arguments, same returned carry.  Counts each launch: an eager one in
+    ``network_update_cuda.launches``; one recorded into a CUDA graph, on
+    the device at every replay, where :func:`count_replays` armed a
+    counter for the device before the capture."""
     launch, result = prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v,
                                     h2_limit)
     launch()
-    network_update_cuda.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # the launch is recorded, not run: a node beside it counts it
+        # each time it runs (atomically: graphs replay on several streams)
+        armed = _replay_counters.get(_device_index(launch.dt.device))
+        if armed is not None:
+            count, index, one = armed
+            count.index_add_(0, index, one)
+    else:
+        network_update_cuda.launches += 1
     return result
 
 
 network_update_cuda.launches = 0
+#: per device index: (count, index, one), int64 tensors of one element on
+#: that device, where count_replays armed the device's replay count
+_replay_counters: dict = {}
+
+
+def _device_index(device) -> int:
+    device = torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def count_replays(device):
+    """Count on ``device`` the network launches that CUDA graphs captured
+    from now on make when they replay (graphs captured before are not
+    counted); a no-op off the card and where the device already counts.
+    Not inside a capture."""
+    if torch.device(device).type != "cuda":
+        return
+    index = _device_index(device)
+    if index not in _replay_counters:
+        dev = torch.device("cuda", index)
+        _replay_counters[index] = (
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.ones(1, dtype=torch.int64, device=dev))
+
+
+def replayed_launches() -> int:
+    """The network launches that graphs replayed since the counts were
+    armed or zeroed, summed over the devices (reads them on the host)."""
+    return sum(int(count) for count, _, _ in _replay_counters.values())
+
+
+def zero_launch_counts():
+    """Set the host count and every device's replay count to 0."""
+    network_update_cuda.launches = 0
+    for count, _, _ in _replay_counters.values():
+        count.zero_()
 
 
 def network_update(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):

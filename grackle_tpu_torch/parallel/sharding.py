@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from .. import api as _api
+from ..graph_cache import GraphCache
 from ..ops.common import make_unit_scalars
 
 
@@ -104,7 +105,8 @@ def context_on(ctx, device):
     return dataclasses.replace(
         ctx, tables=_on_device(ctx.tables, device),
         cloudy_primordial=_on_device(ctx.cloudy_primordial, device),
-        cloudy_metal=_on_device(ctx.cloudy_metal, device), device=device)
+        cloudy_metal=_on_device(ctx.cloudy_metal, device), device=device,
+        graphs=GraphCache())
 
 
 def solve_chemistry_sharded(ctx, fields, dt, mesh, grid_dx: float = 0.0,
@@ -130,14 +132,15 @@ def solve_chemistry_sharded(ctx, fields, dt, mesh, grid_dx: float = 0.0,
 
     contexts = {}
     outs, diags = [], []
-    for device, f_local in zip(mesh, shard_fields(f, mesh)):
+    for i, (device, f_local) in enumerate(zip(mesh, shard_fields(f, mesh))):
         device = torch.device(device)
         key = str(device)
         if key not in contexts:
             contexts[key] = context_on(ctx, device)
         l_local = f_local.pop("l_h2shield_field", None)
-        new_f, diag = _api.solve_prepared(contexts[key], us, pr, f_local,
-                                          float(dt), imetal, l_local)
+        new_f, diag = _api.solve_cached(
+            contexts[key], us, pr, f_local, float(dt), imetal, l_local,
+            graphs=ctx.graphs, part=("shard", i, len(mesh)))
         outs.append(new_f)
         diags.append(diag)
 

@@ -8,8 +8,10 @@
   (``_local_scalar_dense``, ``is_nonzero``, ``nonzero``) and on tensors
   made from host data (``lift_fresh``), which a CUDA graph cannot
   capture either.  Those reads are exactly the ones that WHILE nodes
-  replace inside a capture (chip_smoke.py phase 4m captures and replays
-  the solves on the card);
+  replace inside a capture (chip_smoke.py phases 4m and 4n capture and
+  replay the solves on the card).  The cases cover every configuration
+  the stateful API captures (graph_cache.py); the paths without a loop
+  read nothing at all;
 - a 0-d tensor ``dt`` gives the bits of a float ``dt`` on every path,
   each converted on entry to one form (``ops/common.as_dt``);
 - ``make_solve_fn`` with a tensor ``dt`` over three steps, and with a
@@ -239,12 +241,112 @@ READ_CASES = {
 }
 
 
+def _config_solve(n=16, l_h2shield=None, state=None, **kw):
+    """make_solve_fn on the answer workloads' chemistry with ``kw``, its
+    state (the tabulated one for chemistry 0) on ``n`` cells."""
+    cd = chip_smoke.answer_chem("cpu", **kw)
+    if state is None:
+        state = (chip_smoke.tabulated_state(cd, n)
+                 if cd.primordial_chemistry == 0
+                 else chip_smoke.answer_state(cd, n=n))
+    solve = gfn.make_solve_fn(cd)
+    f = _tensors(state)
+    dt = torch.tensor(DT_READS, dtype=torch.float64)
+    return lambda: solve(f, dt, l_h2shield=l_h2shield)
+
+
+def _old_style(rank):
+    cd = chip_smoke.old_style_chem("cpu", rank)
+    solve = gfn.make_solve_fn(cd)
+    f = _tensors(chip_smoke.old_style_state(cd, 1.0e-3, n=16))
+    dt = torch.tensor(DT_READS, dtype=torch.float64)
+    return lambda: solve(f, dt)
+
+
+def _shielded(option):
+    """Chemistry 2 with the UVB and H2 self-shielding ``option``: option
+    1 takes a per-cell length, option 2 a field of lengths."""
+    cd = chip_smoke.answer_chem("cpu", primordial_chemistry=2,
+                                UVbackground=1, H2_self_shielding=option)
+    state = chip_smoke.answer_state(cd, n=16)
+    if option == 2:
+        state["H2_self_shielding_length"] = np.full(16, 1.0e-3)
+    l_h2 = (torch.full((16,), 1.0e19, dtype=torch.float64)
+            if option == 1 else None)
+    return _config_solve(state=state, l_h2shield=l_h2,
+                         primordial_chemistry=2, UVbackground=1,
+                         H2_self_shielding=option)
+
+
+def _derived_fn(which, **kw):
+    cd = chip_smoke.answer_chem("cpu", **kw)
+    f = _tensors(chip_smoke.tabulated_state(cd, 16)
+                 if cd.primordial_chemistry == 0
+                 else chip_smoke.answer_state(cd, n=16))
+    fn = getattr(gfn, f"make_{which}_fn")(cd)
+    return lambda: fn(f)
+
+
+#: dust, metals and the UVB in comoving units at z = 1
+COMOVING = dict(primordial_chemistry=3, metal_cooling=1, dust_chemistry=1,
+                UVbackground=1, comoving_coordinates=1, a_value=0.5)
+FLAGSHIP = dict(primordial_chemistry=3, metal_cooling=1, dust_chemistry=1)
+
+#: every configuration the stateful API captures, beyond READ_CASES: phase
+#: 2b's network configurations, old-style rank-4 and rank-5 tables, the
+#: UVB, H2 self-shielding 1 to 3, comoving units, and the tabulated mode's
+#: temperature (its mu fixed point)
+READ_CASES.update({
+    **{f"network_{name}": (lambda kw=kw: _config_solve(**kw))
+       for name, kw in chip_smoke.NETWORK_CASES.items()},
+    "old_style_rank4": lambda: _old_style(4),
+    "old_style_rank5": lambda: _old_style(5),
+    "uvb_chem1": lambda: _config_solve(primordial_chemistry=1,
+                                       UVbackground=1),
+    "uvb_chem2": lambda: _config_solve(primordial_chemistry=2,
+                                       UVbackground=1),
+    "shielding_1": lambda: _shielded(1),
+    "shielding_2": lambda: _shielded(2),
+    "shielding_3": lambda: _shielded(3),
+    "comoving": lambda: _config_solve(**COMOVING),
+    "temperature_fn_tabulated": lambda: _derived_fn(
+        "temperature", primordial_chemistry=0, metal_cooling=1),
+})
+
+#: the configurations without a data-dependent loop, which read nothing
+#: on the host: the exact path (in proper and comoving units) and the
+#: temperature, pressure and gamma closures
+NO_READ_CASES = {
+    "exact": lambda: _config_solve(primordial_chemistry=0, metal_cooling=1,
+                                   exact_cooling=1),
+    "exact_comoving": lambda: _config_solve(
+        primordial_chemistry=0, metal_cooling=1, exact_cooling=1,
+        comoving_coordinates=1, a_value=0.5),
+    **{f"{which}_fn_{tag}": (lambda which=which, kw=kw:
+                             _derived_fn(which, **kw))
+       for which in ("temperature", "pressure", "gamma")
+       for tag, kw in (("flagship", FLAGSHIP), ("comoving", COMOVING))},
+    "pressure_fn_tabulated": lambda: _derived_fn(
+        "pressure", primordial_chemistry=0, metal_cooling=1),
+    "gamma_fn_tabulated": lambda: _derived_fn(
+        "gamma", primordial_chemistry=0, metal_cooling=1),
+}
+
+
 @pytest.mark.parametrize("case", list(READ_CASES))
 def test_only_the_loop_reads(case, no_host_reads):
     run = READ_CASES[case]()
     with no_host_reads:
         run()
     assert no_host_reads.reads > 0
+
+
+@pytest.mark.parametrize("case", list(NO_READ_CASES))
+def test_no_loop_no_read(case, no_host_reads):
+    run = NO_READ_CASES[case]()
+    with no_host_reads:
+        run()
+    assert no_host_reads.reads == 0
 
 
 # --- a tensor dt has the bits of a float dt -----------------------------
