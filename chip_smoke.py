@@ -25,7 +25,8 @@ body.  Phases:
    compacted path's tile and batch widths, then at the batch width plus
    one cell, with operands at odd element offsets and with the compacted
    solve's packed carry, the kernel reading dt from a 0-d float64 tensor
-   on the card as every solve passes it; masks and counters must be
+   on the card as every solve passes it, and dom, chunit and k27 from
+   the call's scalar block on the card; masks and counters must be
    identical and every float output bit-identical (max rel 0); the
    median device time of 20 bare kernel launches and of 20 twin calls,
    each after an L2 flush, beside the launch's bound (its bytes at 3.35
@@ -127,7 +128,10 @@ body.  Phases:
    inputs and a new dt, each bit-identical to the uncached body on the
    same inputs (fields, cell_iterations, converged, subcycles), one
    kernel launch a subcycle, the previous call's returned tensors
-   unchanged, the cache within its bound, a changed a_value a new key:
+   unchanged, the cache within its bound, and a call at a changed
+   a_value a replay under the same key, bit-identical to the uncached
+   body at that a_value (the unit scalars and photo rates reach the
+   graph as the call's scalar block):
    the f64 flagship (compacted) and exact cooling at 1,048,576 cells,
    4e's old-style rank-5 chemistry 1, solve_chemistry_grid with
    chemistry 2, the UVB and H2 self-shielding 1 on phase 3's grid, the
@@ -136,7 +140,13 @@ body.  Phases:
    cycling through the CYCLE_WIDTHS for CYCLE_ROUNDS rounds, its
    per-call wall beside the uncached body's), and the flagship on four
    shards; per kind of call its wall seconds, per capture the graph's
-   nodes and pools; no loop-body pool left after;
+   nodes and pools; a cosmological host, the f64 flagship replayed at
+   each of COSMO_A_VALUES and the UVB grid at each of UVB_A_VALUES
+   (across the UVB's switch-on, each against the uncached body), each
+   call's kind and wall; the scalar block's host work and copy timed;
+   a host holding all of the card but a little, under which a key's
+   second call stays eager, then captures once the memory is let go;
+   no loop-body pool left after;
 5. the launch the kernel line reports (f64, subcycle 24, the batch
    width), timed again with CUDA events and by torch.profiler's kernel
    duration.  It runs last because a profiler session slows every later
@@ -155,6 +165,16 @@ last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
 jax nor grackle_tpu.
+
+    python3 chip_smoke.py --cooling-cell-full
+
+runs, instead of the phases, phases 0 and 1 and then the cooling_cell
+example on the card in full (all 28,443 steps of its stored trajectory,
+about 1,000 s) against every array of tests/answers/examples/
+cooling_cell.npz at rtol 1e-6; its last line is a JSON object
+``{"cooling_cell_full": {...}}`` with the steps, the wall, the kinds of
+call and the worst relative error, and it exits 0 only where every array
+holds.
 """
 
 from __future__ import annotations
@@ -235,10 +255,18 @@ CARD_DEVICE = "cuda:0"
 DT_REPLAY = 5.0e-5
 A_VALUE_CHANGED = 0.5
 CELL_STEPS = 100
-#: phase 4n: the dt of a solve entry's calls on the changed a_value: dt
-#: is no part of a key, and a short step runs few subcycles, so the
-#: eager calls that the new key makes stay short at 1,048,576 cells
-DT_NEW_KEY = 1.0e-8
+#: phase 4n: the dt of a solve entry's replay on the changed a_value: a
+#: short step runs few subcycles, so the uncached reference it is held
+#: to (an eager solve) stays short at 1,048,576 cells
+DT_CHANGED_A = 1.0e-8
+#: phase 4n: a cosmological host's a_values (z = 1 to 0.89), one call
+#: each at DT_REPLAY on the f64 flagship; and those of the UVB grid
+#: entry, across the synthetic UVB's switch-on at z = 10 (z = 11 and
+#: 10.5, the rates 0; z = 9.5 and 3)
+COSMO_A_VALUES = (0.50, 0.51, 0.52, 0.53)
+UVB_A_VALUES = (1 / 12, 1 / 11.5, 1 / 10.5, 1 / 4)
+#: phase 4n: calls timed of the scalar block's host work and copy
+COPY_IN_CALLS = 200
 #: phase 4n: the patch widths (cubes of 8 to 22 cells a side, as an AMR
 #: host's grids) a host cycles through, more than the card's bound on
 #: graphs, and the rounds of the cycle
@@ -1194,15 +1222,27 @@ print(f"NCCL_OK world {size} rank {rank} backend {backend} mesh "
 def capture_network_inputs(cd, fields, dt, at):
     """Run the solve's subcycles (through the kernel) and keep the
     network region's inputs at each subcycle index in ``at``."""
-    from grackle_tpu_torch.api import _photo_rates, _prep_fields
+    from grackle_tpu_torch.api import _prep_fields
     from grackle_tpu_torch.ops import solver
-    from grackle_tpu_torch.ops.common import make_unit_scalars
 
     ctx = cd.context
     cfg = ctx.config
     f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(cfg, ctx.tables, ctx.units)
-    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    try:
+        from grackle_tpu_torch.api import call_scalars
+        from grackle_tpu_torch.ops.common import block_scalars
+    except ImportError:
+        # a package from before the scalar block (another checkout timed
+        # by scripts/time_network_kernel.py --root): host floats
+        from grackle_tpu_torch.api import _photo_rates
+        from grackle_tpu_torch.ops.common import make_unit_scalars
+
+        us = make_unit_scalars(cfg, ctx.tables, ctx.units)
+        pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    else:
+        # the unit scalars and photo rates as a body reads them: 0-d
+        # views of the call's scalar block on the fields' device
+        us, pr, _ = block_scalars(call_scalars(ctx, f["density"].device))
     f, itmask0 = solver.prepare_fields(cfg, f, us, imetal, False)
     f_state, f_const = solver.split_state(cfg, f)
     carry = solver.init_carry(f_state, itmask0, cfg)
@@ -1227,7 +1267,8 @@ def map_inputs(inp, fn):
     def walk(x):
         if isinstance(x, dict):
             return {k: walk(v) for k, v in x.items()}
-        return fn(x) if isinstance(x, torch.Tensor) else x
+        # a 0-d tensor is a scalar of the call's block (the shields' k27)
+        return fn(x) if isinstance(x, torch.Tensor) and x.dim() else x
 
     out = {k: walk(v) for k, v in inp.items() if k != "rs"}
     rs = inp["rs"]
@@ -2087,8 +2128,9 @@ class Smoke:
         fields, cell_iterations, converged, subcycles), launch the
         network kernel once a subcycle, and leave the tensors the
         previous call returned as they were; the cache never holds more
-        than its bound; a changed a_value is a new key, whose first call
-        runs eagerly.  The entries: the f64 flagship on the compacted
+        than its bound; a call at a changed a_value replays the graph it
+        has, bit-identical to the uncached body at that a_value.  The
+        entries: the f64 flagship on the compacted
         path and exact tabulated cooling at N_FLAGSHIP cells; phase 4e's
         old-style rank-5 chemistry 1; a chemistry-2 UVB state with H2
         self-shielding 1 through solve_chemistry_grid on phase 3's
@@ -2097,9 +2139,11 @@ class Smoke:
         than the bound; N_SHARDS shards of the flagship.  Each line gives
         per kind of call the wall seconds (replays: median), and per
         capture the graph's nodes (its own and its WHILE bodies') and
-        pools, beside the card's name and power limit.  Last, no
-        loop-body pool of these graphs is left once their contexts are
-        deleted."""
+        pools, beside the card's name and power limit.  Between them: a
+        cosmological host (the flagship and the UVB grid at several
+        a_values, each call a replay), the scalar block's copy timed, and
+        the held-memory check (held_memory).  Last, no loop-body pool of
+        these graphs is left once their contexts are deleted."""
         import torch
 
         from grackle_tpu_torch import graph_cache
@@ -2172,13 +2216,52 @@ class Smoke:
             launch_total[0] += launches
             return got, wall
 
+        def at_a_value(cd, a_value, fn):
+            """``fn()`` with ``cd``'s a_value set to ``a_value`` (its
+            units refreshed, as a cosmological host refreshes them), then
+            restored."""
+            old = cd.a_value
+            cd.a_value = a_value
+            cd.refresh_units()
+            try:
+                return fn()
+            finally:
+                cd.a_value = old
+                cd.refresh_units()
+
+        def changed_a_value(label, cd, graphs, call, args, prev, same, solve):
+            """A call at a_value A_VALUE_CHANGED (a solve at dt
+            DT_CHANGED_A): a replay under the key the context has,
+            bit-identical to the uncached body at that a_value, one
+            launch a subcycle counted on the card.  Returns the
+            message."""
+            keys = graphs.keys()
+            args = args[:-1] + (DT_CHANGED_A,) if solve else args
+
+            def check():
+                with uncached():
+                    ref = call(*args)
+                return check_call(f"{label}, a_value {A_VALUE_CHANGED}",
+                                  graphs, "replay", call, args, ref, same,
+                                  prev, solve)
+
+            got, wall = at_a_value(cd, A_VALUE_CHANGED, check)
+            if graphs.keys() != keys:
+                raise AssertionError(f"{label}: a changed a_value changed "
+                                     f"the keys {len(keys)} -> "
+                                     f"{len(graphs.keys())}")
+            return (f"a_value {A_VALUE_CHANGED}"
+                    + (f", dt {DT_CHANGED_A}" if solve else "")
+                    + f": a replay under the same key, {wall:.4f} s"
+                    + (f", {solve_launches(got)} launches" if solve else "")
+                    + ", bit-identical to the uncached body")
+
         def run_entry(label, cd, graphs, call, inputs, refs=None,
-                      same=tree_differences, solve=True, recapture=True):
+                      same=tree_differences, solve=True):
             """The calls (eager "a", capture "a", replay "b", replay "a")
             of ``call(*inputs[tag])``, each against the uncached call (or
-            ``refs[tag]``); then a_value changed (a solve at dt
-            DT_NEW_KEY): a new key, eager (and, where ``recapture``,
-            captured at its second call)."""
+            ``refs[tag]``); then the "a" call at a changed a_value, a
+            replay (changed_a_value)."""
             refs = {} if refs is None else refs
             walls = collections.defaultdict(list)
             first_capture = len(captures)
@@ -2193,41 +2276,92 @@ class Smoke:
                                        solve)
                 walls[kind].append(wall)
                 prev = (got, tree_clone(got))
-            keys = graphs.keys()
-            a_value = cd.a_value
-            cd.a_value = A_VALUE_CHANGED
-            cd.refresh_units()
-            new_args = (inputs["a"][:-1] + (DT_NEW_KEY,) if solve
-                        else inputs["a"])
-            try:
-                kinds, _, wall = stateful_call(graphs, call, *new_args)
-                new = [f"a_value {A_VALUE_CHANGED}"
-                       + (f", dt {DT_NEW_KEY}" if solve else "")
-                       + f": {dict(kinds)} {wall:.4f} s"]
-                if set(kinds) != {"eager"} or graphs.keys() != keys:
-                    raise AssertionError(f"{label}: a changed a_value made "
-                                         f"{dict(kinds)}, keys "
-                                         f"{len(keys)} -> "
-                                         f"{len(graphs.keys())}")
-                if recapture:
-                    kinds, _, wall = stateful_call(graphs, call,
-                                                   *new_args)
-                    new.append(f"then {dict(kinds)} {wall:.4f} s")
-                    if (set(kinds) != {"capture"}
-                            or len(set(graphs.keys()) - set(keys)) != 1):
-                        raise AssertionError(f"{label}: the changed "
-                                             f"a_value's second call made "
-                                             f"{dict(kinds)}")
-            finally:
-                cd.a_value = a_value
-                cd.refresh_units()
+            changed = changed_a_value(label, cd, graphs, call, inputs["a"],
+                                      prev, same, solve)
             report(label, walls, first_capture,
-                   f"; a new key: {', '.join(new)}; {len(graphs)} graphs "
-                   f"of the context, {graph_cache.held(CARD_DEVICE)} on the card "
-                   f"(bound {graph_cache.MAX_GRAPHS}); every call "
-                   f"bit-identical to "
-                   f"the uncached body, no earlier result overwritten")
+                   f"; {changed}; {len(graphs)} graphs of the context, "
+                   f"{graph_cache.held(CARD_DEVICE)} on the card (bound "
+                   f"{graph_cache.MAX_GRAPHS}); every call bit-identical "
+                   f"to the uncached body, no earlier result overwritten")
             return refs
+
+        def cosmological(label, cd, graphs, call, fields, dt, a_values,
+                         check=False):
+            """A cosmological host: one call at each of ``a_values``, the
+            units refreshed before it, under the key the context holds:
+            every call a replay, no key added, its outputs finite, one
+            launch a subcycle counted on the card; where ``check``, each
+            bit-identical to the uncached body at its a_value.  Returns
+            the message, each call's kind and wall, and the outputs in
+            which it differs from the previous call's (the a_value
+            reached the graph)."""
+            keys = graphs.keys()
+            calls, last = [], None
+            for a_value in a_values:
+                def one():
+                    if not check:
+                        zero_launches()
+                        kinds, got, wall = stateful_call(graphs, call,
+                                                         fields, dt)
+                        if set(kinds) != {"replay"}:
+                            raise AssertionError(
+                                f"{label}, a_value {a_value}: the cache "
+                                f"made {dict(kinds)}")
+                        if launches_run() != solve_launches(got):
+                            raise AssertionError(
+                                f"{label}, a_value {a_value}: "
+                                f"{launches_run()} launches for "
+                                f"{solve_launches(got)} subcycles")
+                        launch_total[0] += launches_run()
+                        for key, val in got[0].items():
+                            if not bool(torch.isfinite(val).all()):
+                                raise AssertionError(
+                                    f"{label}, a_value {a_value}: {key} "
+                                    f"not finite")
+                        return got, wall
+                    with uncached():
+                        ref = call(fields, dt)
+                    return check_call(f"{label}, a_value {a_value}",
+                                      graphs, "replay", call, (fields, dt),
+                                      ref, tree_differences, None)
+
+                got, wall = at_a_value(cd, a_value, one)
+                moved = ("" if last is None else
+                         ", moved from the previous call in "
+                         + str(len(tree_differences(got[0], last)))
+                         + " of " + str(len(got[0])) + " fields")
+                last = tree_clone(got[0])
+                calls.append(f"a_value {a_value:.6g}: replay {wall:.4f} s, "
+                             f"{solve_launches(got)} subcycles{moved}")
+            if graphs.keys() != keys:
+                raise AssertionError(f"{label}: the a_values changed the "
+                                     f"keys {len(keys)} -> "
+                                     f"{len(graphs.keys())}")
+            msg = (f"cosmological {label}, dt {dt}: " + "; ".join(calls)
+                   + ("; each bit-identical to the uncached body"
+                      if check else "") + f" ({self.card})")
+            print(f"[4n cosmological] {msg}", flush=True)
+            parts.append(msg)
+
+        def copy_in(label, ctx):
+            """The host work and copy of a call's scalar block
+            (api.call_scalars: unit scalars, photo rates, one copy from
+            pinned memory), host wall to the block's arrival, median of
+            COPY_IN_CALLS."""
+            from grackle_tpu_torch.api import call_scalars
+
+            walls = []
+            for _ in range(COPY_IN_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call_scalars(ctx, CARD_DEVICE)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            msg = (f"scalar block, {label}: {np.median(walls) * 1e6:.1f} us "
+                   f"a call (median of {COPY_IN_CALLS}, host wall to the "
+                   f"copy's end; min {min(walls) * 1e6:.1f} us)")
+            print(f"[4n copy-in] {msg} ({self.card})", flush=True)
+            parts.append(msg)
 
         def flagship_pair(cd, seed, dt):
             return (flagship_fields(cd, N_FLAGSHIP, seed=seed), dt)
@@ -2249,7 +2383,11 @@ class Smoke:
             flag_refs = run_entry(
                 f"f64 flagship, compacted, {N_FLAGSHIP} cells, dt "
                 f"{DT_FLAGSHIP} then {DT_REPLAY}", cd, graphs,
-                cd.solve_chemistry, inputs, recapture=False)
+                cd.solve_chemistry, inputs)
+            cosmological(f"f64 flagship, {N_FLAGSHIP} cells", cd, graphs,
+                         cd.solve_chemistry, inputs["b"][0], DT_REPLAY,
+                         COSMO_A_VALUES)
+            copy_in("constant photo rates", cd.context)
             for name in GRID_DERIVED:
                 run_entry(f"calculate_{name}, {N_FLAGSHIP} cells", cd,
                           graphs, getattr(cd, f"calculate_{name}"),
@@ -2276,7 +2414,7 @@ class Smoke:
                       cd.context.graphs, cd.solve_chemistry,
                       {"a": (answer_state(cd, n=N_FLAGSHIP), DT_FLAGSHIP),
                        "b": (answer_state(cd, n=N_FLAGSHIP, seed=5),
-                             DT_REPLAY)}, recapture=False)
+                             DT_REPLAY)})
             del cd
 
             # chemistry 2, the UVB and H2 self-shielding 1 on phase 3's
@@ -2286,13 +2424,22 @@ class Smoke:
             grid = {tag: (grid_fields(cd, seed=seed)[0], dt)
                     for tag, seed, dt in (("a", 11, GRID_DT),
                                           ("b", 12, 2 * GRID_DT))}
+            def grid_call(f, dt):
+                return cd.solve_chemistry_grid(
+                    f, dt, grid_start=GRID_START, grid_end=GRID_END,
+                    grid_dx=GRID_DX)
+
             run_entry(f"solve_chemistry_grid, chemistry 2, UVB, H2 "
                       f"self-shielding 1, {GRID_SHAPE} grid, dt {GRID_DT} "
                       f"then {2 * GRID_DT}", cd, cd.context.graphs,
-                      lambda f, dt: cd.solve_chemistry_grid(
-                          f, dt, grid_start=GRID_START, grid_end=GRID_END,
-                          grid_dx=GRID_DX), grid)
+                      grid_call, grid)
+            cosmological(f"UVB grid {GRID_SHAPE}, across the UVB switch-on",
+                         cd, cd.context.graphs, grid_call, grid["a"][0],
+                         GRID_DT, UVB_A_VALUES, check=True)
+            copy_in("UVB rates at the call's redshift", cd.context)
             del cd
+
+            self.held_memory(check_call, captures, parts)
 
             self.cell_replays(check_call, report, captures)
 
@@ -2316,8 +2463,7 @@ class Smoke:
                           cd.context, f, dt, mesh),
                       inputs, refs=flag_refs,
                       same=lambda got, ref: tree_differences(cells(got),
-                                                             cells(ref)),
-                      recapture=False)
+                                                             cells(ref)))
             del cd, flag_refs, inputs
         finally:
             graph_cache._capture = real_capture
@@ -2385,6 +2531,14 @@ class Smoke:
         if [len(walls[k]) for k in CALL_KINDS] != [1, 1, CELL_STEPS - 2]:
             raise AssertionError(f"cooling_cell: calls {dict(walls)}")
         label = f"{CELL_STEPS} cooling_cell steps, 1 cell, dt {dt:.6g}"
+        # the next step at a changed a_value: a replay of the same graph
+        cc.a_value = A_VALUE_CHANGED
+        with uncached():
+            ref = cc.solve_chemistry(fields, dt)
+        _, a_wall = check_call(f"cooling_cell, a_value {A_VALUE_CHANGED}",
+                               graphs, "replay", cc.solve_chemistry,
+                               (fields, dt), ref, tree_differences, prev)
+        cc.a_value = 1.0
         # as many new widths as the bound: every capture past the bound
         # drops the least recently used graph, the one-cell step's first
         widths = range(2, graph_cache.MAX_GRAPHS + 2)
@@ -2401,25 +2555,137 @@ class Smoke:
             raise AssertionError(f"cooling_cell: {len(graphs)} graphs after "
                                  f"{len(widths)} widths, bound "
                                  f"{graph_cache.MAX_GRAPHS}")
-        keys = graphs.keys()
-        cc.a_value = A_VALUE_CHANGED
-        kinds, _, _ = stateful_call(graphs, cc.solve_chemistry, fields, dt)
-        kinds2, _, _ = stateful_call(graphs, cc.solve_chemistry, fields, dt)
-        if (set(kinds) != {"eager"} or set(kinds2) != {"capture"}
-                or graphs.keys()[:-1] != keys[1:]):
-            raise AssertionError(f"cooling_cell: a changed a_value made "
-                                 f"{dict(kinds)} then {dict(kinds2)}")
-        cc.a_value = 1.0
         cycle = self.width_cycle(cc, fields, dt, check_call)
         report(label, walls, first_capture,
-               f"; widths 2 to {widths[-1]}, eager then captured: "
-               f"{len(graphs)} graphs kept (bound "
-               f"{graph_cache.MAX_GRAPHS}), the "
-               f"least recently used dropped; a_value {A_VALUE_CHANGED}: "
-               f"eager, then captured; {cycle}; every call "
-               f"bit-identical to the uncached body, no earlier result "
-               f"overwritten")
+               f"; a_value {A_VALUE_CHANGED}: a replay of the same graph, "
+               f"{a_wall:.4f} s; widths 2 to {widths[-1]}, eager then "
+               f"captured: {len(graphs)} graphs kept (bound "
+               f"{graph_cache.MAX_GRAPHS}), the least recently used "
+               f"dropped; {cycle}; every call bit-identical to the "
+               f"uncached body, no earlier result overwritten")
         del cc, fc, graphs
+
+    def held_memory(self, check_call, captures, parts):
+        """Phase 4n's memory check (graph_cache.py): a new key, the f64
+        flagship's cooling time at N_FLAGSHIP cells, called eagerly once;
+        then a host holds all of the card but what the key's eager body
+        needs and less than its capture would (halfway between its
+        recorded eager peak and CAPTURE_PEAKS times it, with its inputs),
+        and the key's second call stays eager; once the host lets go, the
+        next call captures and the one after replays.  Every call
+        bit-identical to the uncached body, none raises for memory.
+        Reports the peak, the room left, and the capture's pools beside
+        the peak.  Last, a host captures the same call into its own
+        graph (the cache stays out of it), whose replays must give the
+        uncached body's bits."""
+        import torch
+
+        from grackle_tpu_torch import graph_cache
+
+        cd = flagship_chem(64, "cuda")
+        graphs = cd.context.graphs
+        fields = device_fields(flagship_fields(cd, N_FLAGSHIP, seed=13))
+        call = cd.calculate_cooling_time
+        with uncached():
+            ref = call(fields)
+        check_call("held memory, first call", graphs, "eager", call,
+                   (fields,), ref, tree_differences, None, solve=False)
+        [(_, peak)] = graphs._seen.values()
+        inputs = sum(v.numel() * v.element_size() for v in fields.values())
+        need = graph_cache.CAPTURE_PEAKS * peak + inputs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        device = torch.device(CARD_DEVICE)
+        room = (peak + need) // 2
+        held = torch.empty(int(graph_cache._free_bytes(device) - room),
+                           dtype=torch.uint8, device=device)
+        left = graph_cache._free_bytes(device)
+        kinds = []
+        try:
+            _, wall = check_call("held memory, second call", graphs, "eager",
+                                 call, (fields,), ref, tree_differences,
+                                 None, solve=False)
+            kinds.append(f"eager {wall:.4f} s")
+        finally:
+            del held
+        first_capture = len(captures)
+        for kind in ("capture", "replay"):
+            _, wall = check_call(f"held memory, {kind} call", graphs, kind,
+                                 call, (fields,), ref, tree_differences,
+                                 None, solve=False)
+            kinds.append(f"{kind} {wall:.4f} s")
+        c = captures[first_capture]
+        pools = (None if None in (c["pool"], c["body_pool"])
+                 else c["pool"] + c["body_pool"])
+        # a host capturing the stateful call into its own graph: the call
+        # runs its body eagerly under the capture, its scalars filled in
+        # and fixed in that graph (ops/common.scalar_block)
+        _, out, stats = capture_graph(lambda: call(fields))
+        if tree_differences(out, ref):
+            raise AssertionError("held memory: the call captured into the "
+                                 "host's own graph differs from the "
+                                 "uncached body")
+        msg = (f"held memory, calculate_cooling_time at {N_FLAGSHIP} "
+               f"cells: eager peak {peak / 2**30:.3f} GiB, inputs "
+               f"{inputs / 2**30:.3f} GiB, a capture needs "
+               f"{need / 2**30:.3f} GiB; a host held all but "
+               f"{left / 2**30:.3f} GiB: the second call stayed eager, "
+               f"then the memory let go: " + ", ".join(kinds)
+               + f"; the capture's pools "
+               + ("not measured" if pools is None else
+                  f"{pools / 2**30:.3f} GiB ({pools / max(peak, 1):.2f} "
+                  f"times the peak)")
+               + f"; the same call captured into the host's own graph, "
+               f"replayed {REPLAYS} times in {stats['replay']:.4f} s "
+               f"(median), bit-identical; every call bit-identical to the "
+               f"uncached body ({self.card})")
+        print(f"[4n held memory] {msg}", flush=True)
+        parts.append(msg)
+
+    def cooling_cell_full(self):
+        """The cooling_cell example on the card over its whole stored
+        trajectory (the --cooling-cell-full run): every array against
+        tests/answers/examples/cooling_cell.npz at ANSWER_RTOL.  Returns
+        the summary the last line prints."""
+        import torch
+
+        from grackle_tpu_torch import api
+        from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
+        from grackle_tpu_torch.examples import cooling_cell
+
+        calls = collections.Counter()
+        solve = api.ChemistryData.solve_chemistry
+
+        def counted(cd, *args, **kw):
+            before = cd.context.graphs.calls.copy()
+            out = solve(cd, *args, **kw)
+            calls.update(cd.context.graphs.calls - before)
+            return out
+
+        zero_launches()
+        api.ChemistryData.solve_chemistry = counted
+        t0 = time.time()
+        try:
+            out = cooling_cell.run(device="cuda",
+                                   cloudy_data=synthetic_cloudy_groups(),
+                                   verbose=False)
+            torch.cuda.synchronize()
+        finally:
+            api.ChemistryData.solve_chemistry = solve
+        wall = time.time() - t0
+        errors = answer_errors("examples/cooling_cell", out)
+        steps = len(out["time"])
+        summary = {"steps": steps, "wall_s": wall,
+                   "s_per_step": wall / max(steps, 1),
+                   "calls": dict(calls), "launches": launches_run(),
+                   "max_rel": errors, "rtol": ANSWER_RTOL,
+                   "ok": max(errors.values()) <= ANSWER_RTOL,
+                   "card": self.card}
+        print(f"[cooling_cell full] {steps} steps in {wall:.1f} s "
+              f"({wall / max(steps, 1):.4f} s a step; calls {dict(calls)}), "
+              f"max rel {errors} (rtol {ANSWER_RTOL}) ({self.card})",
+              flush=True)
+        return summary
 
     def width_cycle(self, cc, fields, dt, check_call):
         """A host cycling through more widths than the card's bound on
@@ -3259,6 +3525,16 @@ def main() -> int:
     t0 = time.time()
     smoke.phase("0 device", smoke.device)
     smoke.phase("1 build", smoke.build)
+    if "--cooling-cell-full" in sys.argv[1:]:
+        summary = None
+        if smoke.ok:
+            try:
+                summary = smoke.cooling_cell_full()
+            except Exception:
+                traceback.print_exc()
+        print(f"[total] {time.time() - t0:.1f} s", flush=True)
+        print(json.dumps({"cooling_cell_full": summary}), flush=True)
+        return 0 if summary is not None and summary["ok"] else 1
     smoke.phase("2 kernel vs twin", smoke.kernel_vs_twin)
     smoke.phase("2b kernel vs twin, every configuration",
                 smoke.kernel_configs)

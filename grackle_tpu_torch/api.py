@@ -45,8 +45,8 @@ from .data.uvb import load_uvb_table, update_uvb_rates, uvb_redshift_bounds
 from .ops import derived as _derived
 from .ops import exact_cool as _exact
 from .ops import solver as _solver
-from .ops.common import (as_dt, make_unit_scalars, photo_rates_from_tables,
-                         solver_dtype)
+from .ops.common import (as_dt, block_scalars, ipow, make_unit_scalars,
+                         photo_rates_from_tables, scalar_block, solver_dtype)
 from .rates.tables import build_rate_tables
 from .units import CodeUnits
 
@@ -160,6 +160,20 @@ def _photo_rates(cfg, tables, uvb, units):
     return photo_rates_from_tables(tables)
 
 
+def call_scalars(ctx: GrackleContext, device, us=None, grid_dx=0.0):
+    """A call's scalar block on ``device`` (ops/common.scalar_block): its
+    unit scalars (``us``, host floats, when the caller has them), photo
+    rates and code units, computed on the host in f64 as the reference
+    computes them in C per call (solve_chemistry.c:103-155), then copied
+    over at once.  The bodies read its elements as 0-d tensors
+    (ops/common.block_scalars)."""
+    cfg = ctx.config
+    if us is None:
+        us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
+    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    return scalar_block(cfg, device, us, pr, ctx.units)
+
+
 def solve_path(cfg, n):
     """Which solve implementation a given (config, cell count) uses:
     'exact' | 'compact' | 'monolithic' (the JAX package's rule)."""
@@ -247,9 +261,10 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
             l_h2 = sobolev_shield_length(
                 d_grid, us.xbase1, us.dx_cgs).reshape(-1)
     # unit scalars and UVB photo rates are per-call host work, as the
-    # reference computes them in C per call
-    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
-    new_f, diagnostics = solve_cached(ctx, us, pr, f, dt, imetal, l_h2)
+    # reference computes them in C per call; the body reads them from
+    # the block, so a graph replays with a new a_value
+    block = call_scalars(ctx, f["density"].device, us)
+    new_f, diagnostics = solve_cached(ctx, block, f, dt, imetal, l_h2)
     # the stateful call reports its counts as Python ints
     for key in ("subcycles", "trips"):
         diagnostics[key] = int(diagnostics[key])
@@ -276,29 +291,39 @@ def _field_key(f):
     return tuple(sorted((key, tuple(val.shape)) for key, val in f.items()))
 
 
-def _key(ctx, entry, f, us, pr=None):
+def _key(ctx, entry, f):
     """The graph-cache key of a call: what its graph bakes in besides
-    its inputs' values (graph_cache.py)."""
+    its inputs' values (graph_cache.py), what the JAX package's jitted
+    cores take as static: the entry, the field names and shapes, the
+    solver dtype, whether the metal field is given and the comoving
+    flag (the context's frozen configuration is implied).  The unit
+    scalars and photo rates are not in it: they are an input, the
+    call's scalar block."""
     return (entry, _field_key(f), solver_dtype(ctx.config), "metal" in f,
-            bool(ctx.units.comoving_coordinates), ctx.units, us, pr)
+            bool(ctx.units.comoving_coordinates))
 
 
-def solve_cached(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
+def solve_cached(ctx: GrackleContext, block, f, dt, imetal: bool,
                  l_h2shield=None, graphs=None, part=None):
-    """:func:`solve_prepared` through a graph cache (graph_cache.run):
-    the context's own unless ``graphs`` names another (a shard's solve
-    on a copy of its context keeps its graphs in the original's),
-    ``part`` added to the key (a shard's index)."""
+    """:func:`solve_prepared` through a graph cache (graph_cache.run),
+    with the call's scalar block (:func:`call_scalars`) on the fields'
+    device: the context's cache unless ``graphs`` names another (a
+    shard's solve on a copy of its context keeps its graphs in the
+    original's), ``part`` added to the key (a shard's index)."""
     dt = as_dt(dt, f["density"])
     n = f["density"].shape[0] if f["density"].ndim == 1 else 0
     own = graphs is None or graphs is ctx.graphs
-    key = _key(ctx, "solve", f, us, pr) + (
+    key = _key(ctx, "solve", f) + (
         solve_path(ctx.config, n), l_h2shield is not None, part)
+
+    def body(inp):
+        us, pr, _ = block_scalars(inp["scalars"])
+        return solve_prepared(ctx, us, pr, inp["fields"], inp["dt"], imetal,
+                              inp["l_h2"])
+
     (new_f, diag), _ = graph_cache.run(
-        ctx.graphs if own else graphs, key,
-        lambda inp: solve_prepared(ctx, us, pr, inp["fields"], inp["dt"],
-                                   imetal, inp["l_h2"]),
-        {"fields": f, "dt": dt, "l_h2": l_h2shield},
+        ctx.graphs if own else graphs, key, body,
+        {"fields": f, "dt": dt, "l_h2": l_h2shield, "scalars": block},
         keep=None if own else ctx)
     return new_f, diag
 
@@ -306,7 +331,9 @@ def solve_cached(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
 def solve_prepared(ctx: GrackleContext, us, pr, f, dt, imetal: bool,
                    l_h2shield=None):
     """The solve on prepared tensors ``f`` with this call's unit scalars
-    and photo rates, on the path :func:`solve_path` picks: the body
+    and photo rates (0-d tensors on the fields' device,
+    ops/common.block_scalars), on the path :func:`solve_path` picks: the
+    body
     shared by :func:`solve_chemistry` (which captures it through
     :func:`solve_cached`) and functional.make_solve_fn, never cached.
     ``dt`` is a float or a 0-d tensor on the fields' device
@@ -347,7 +374,7 @@ def solve_exact(ctx: GrackleContext, us, pr, f, dt, imetal: bool):
     cfg = ctx.config
     fe = f
     if ctx.units.comoving_coordinates:
-        fe = _solver.scale_fields(cfg, f, us.aye**-3, imetal)
+        fe = _solver.scale_fields(cfg, f, ipow(us.aye, -3), imetal)
     out = dict(f)
     out["energy"] = _exact.exact_cool_step(
         cfg, ctx.cloudy_primordial, ctx.cloudy_metal, pr, us, fe, dt,
@@ -415,57 +442,59 @@ def solve_chemistry_grid(ctx: GrackleContext, fields, dt,
     return out, diag
 
 
-def _derived_cached(ctx, name, fields, body, pr=None):
-    """``body(f, us, imetal)`` of the prepared fields, this call's unit
-    scalars and whether the metal field is given, through the context's
-    graph cache (graph_cache.run); ``pr``, where the body reads photo
-    rates, goes into the key."""
+def _derived_cached(ctx, name, fields, body):
+    """``body(f, us, pr, units, imetal)`` of the prepared fields, this
+    call's scalars (0-d views of its block: ``UnitScalars``,
+    ``PhotoRates``, ``BodyUnits``) and whether the metal field is given,
+    through the context's graph cache (graph_cache.run)."""
     f, imetal = _prep_fields(ctx, fields)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    block = call_scalars(ctx, f["density"].device)
     out, _ = graph_cache.run(
-        ctx.graphs, _key(ctx, name, f, us, pr),
-        lambda inp: body(inp["fields"], us, imetal), {"fields": f})
+        ctx.graphs, _key(ctx, name, f),
+        lambda inp: body(inp["fields"], *block_scalars(inp["scalars"]),
+                         imetal),
+        {"fields": f, "scalars": block})
     return out
 
 
 def calculate_cooling_time(ctx: GrackleContext, fields):
-    pr = _photo_rates(ctx.config, ctx.tables, ctx.uvb, ctx.units)
     return _derived_cached(
         ctx, "cooling_time", fields,
-        lambda f, us, imetal: _derived.calculate_cooling_time(
+        lambda f, us, pr, units, imetal: _derived.calculate_cooling_time(
             ctx.config, ctx.tables, ctx.cloudy_primordial,
             ctx.cloudy_metal, pr, us, f, imetal=imetal,
             cloudy_data_new=ctx.cloudy_data_new,
-            comoving=bool(ctx.units.comoving_coordinates)), pr)
+            comoving=bool(ctx.units.comoving_coordinates)))
 
 
 def calculate_temperature(ctx: GrackleContext, fields):
     return _derived_cached(
         ctx, "temperature", fields,
-        lambda f, us, imetal: _derived.calculate_temperature(
+        lambda f, us, pr, units, imetal: _derived.calculate_temperature(
             ctx.config, ctx.cloudy_primordial, us, f, imetal))
 
 
 def calculate_pressure(ctx: GrackleContext, fields):
     return _derived_cached(
         ctx, "pressure", fields,
-        lambda f, us, imetal: _derived.calculate_pressure(
+        lambda f, us, pr, units, imetal: _derived.calculate_pressure(
             ctx.config, us, f, imetal))
 
 
 def calculate_gamma(ctx: GrackleContext, fields):
     return _derived_cached(
         ctx, "gamma", fields,
-        lambda f, us, imetal: _derived.calculate_gamma(
+        lambda f, us, pr, units, imetal: _derived.calculate_gamma(
             ctx.config, ctx.cloudy_primordial, us, f, imetal))
 
 
 def calculate_dust_temperature(ctx: GrackleContext, fields):
     return _derived_cached(
         ctx, "dust_temperature", fields,
-        lambda f, us, imetal: _derived.calculate_dust_temperature(
-            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f,
-            ctx.units, imetal))
+        lambda f, us, pr, units, imetal:
+        _derived.calculate_dust_temperature(
+            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f, units,
+            imetal))
 
 
 class ChemistryData:

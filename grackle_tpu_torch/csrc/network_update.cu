@@ -56,7 +56,12 @@
 // once to T, as PyTorch rounds a Python float.  The timestep is a double
 // in device memory (the solvers' 0-d float64 tensor, so that a CUDA graph
 // replays with a new dt); 0.5*dt and tolerance*dt are double products
-// here, as the twin forms them, and rounded once to T.
+// here, as the twin forms them, and rounded once to T.  The call's unit
+// scalars dom and chunit and the unshielded photo rate k27 are T values
+// in device memory too, elements of the call's scalar block
+// (ops/common.py scalar_block), which the twin reads as 0-d tensors: a
+// graph replays with a new a_value.  Each thread loads them once, as the
+// Pallas kernel reads its scalars from one SMEM operand.
 //
 // Build (ops/network_kernel.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -92,6 +97,10 @@ enum In {
   I_h2_limit,
   N_IN
 };
+
+// Device scalars: pointers into the call's scalar block, one T each
+// (ops/network_kernel.py SCALAR_SLOTS).
+enum Scalar { S_dom, S_chunit, S_k27, N_SCALAR };
 
 enum Out {
   O_energy, O_de, O_HI, O_HII, O_HeI, O_HeII, O_HeIII,
@@ -130,11 +139,10 @@ struct NetworkArgs {
   double tolerance;           // dtype_tolerance (retire at tolerance*dt)
   double tiny8;               // dtype floor (ops/common.py)
   double huge8;               // dtype ceiling (ops/common.py)
-  double dom, chunit;         // unit scalars
-  double k27;                 // unshielded k27 photo rate
   double acc;                 // subcycle_accuracy
   double gamma_m1;            // Gamma - 1
   double t_start_101;         // 1.01 * TemperatureStart
+  const void* scalar[N_SCALAR];  // dom, chunit, k27 (null below chem 1)
   const void* in[N_IN];
   void* out[N_OUT];
 };
@@ -179,9 +187,16 @@ __device__ __forceinline__ void two_sum(T hi, T lo, T x, T& hi_out,
   lo_out = lo - (hi_out - s);
 }
 
+// The device scalars as one thread holds them.
+template <typename T>
+struct Scalars {
+  T dom, chunit, k27;
+};
+
 template <typename T>
 __device__ __forceinline__ void network_cell(const NetworkArgs& a,
-                                             long long i, double dt64) {
+                                             long long i, double dt64,
+                                             const Scalars<T>& sc) {
   const int isp = a.ispecies;
   const bool dust = a.anydust != 0;
   const bool comp = a.compensated != 0;
@@ -191,7 +206,7 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
   const T tiny = T(1.0e-20);
   const T tiny8 = T(a.tiny8);
   const T dt = T(dt64);
-  const T dom = T(a.dom);
+  const T dom = sc.dom;
 
   const bool itmask = ld<uint8_t>(a, i, I_itmask) != 0;
   const int it = ld<int>(a, i, I_cell_it);
@@ -254,7 +269,7 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
     s26 = ld<T>(a, i, I_s26);
   }
   T s28 = 0, s29 = 0, s30 = 0, s31 = 0;
-  const T s27 = T(a.k27);
+  const T s27 = sc.k27;
   if (isp > 1) {
     s28 = ld<T>(a, i, I_s28); s29 = ld<T>(a, i, I_s29);
     s30 = ld<T>(a, i, I_s30); s31 = ld<T>(a, i, I_s31);
@@ -336,7 +351,7 @@ __device__ __forceinline__ void network_cell(const NetworkArgs& a,
         H2delta = H2delta
             + (h2dust * HI * rhoH * (T(0.2) + T(4.2) * h2heatfac));
       }
-      edot = edot + T(a.chunit) * H2delta;
+      edot = edot + sc.chunit * H2delta;
     }
     if (irt) {
       HIdot = HIdot - kphHI * HI;
@@ -627,9 +642,14 @@ __global__ void __launch_bounds__(TILE, MIN_CTAS_PER_SM<T>)
 network_update_kernel(const __grid_constant__ NetworkArgs a) {
   const long long stride = (long long)gridDim.x * TILE;
   const double dt64 = __ldg(static_cast<const double*>(a.dt));
+  Scalars<T> sc;
+  sc.dom = __ldg(static_cast<const T*>(a.scalar[S_dom]));
+  sc.chunit = __ldg(static_cast<const T*>(a.scalar[S_chunit]));
+  sc.k27 = a.ispecies > 0 ? __ldg(static_cast<const T*>(a.scalar[S_k27]))
+                          : T(0);
   for (long long i = (long long)blockIdx.x * TILE + threadIdx.x; i < a.n;
        i += stride) {
-    network_cell<T>(a, i, dt64);
+    network_cell<T>(a, i, dt64, sc);
   }
 }
 
@@ -639,9 +659,10 @@ extern "C" {
 
 // Slot counts, so the Python wrapper can check its layout against this
 // build's.
-int grackle_network_slots(int* n_in, int* n_out) {
+int grackle_network_slots(int* n_in, int* n_out, int* n_scalar) {
   *n_in = N_IN;
   *n_out = N_OUT;
+  *n_scalar = N_SCALAR;
   return (int)sizeof(NetworkArgs);
 }
 

@@ -16,8 +16,11 @@ plain functions of the fields:
 What is frozen at build time (host-side, like the reference's per-call C
 work, update_UVbackground_rates.c:25-289): the parameter set, the rate
 tables, the unit system, and the redshift-dependent UV-background photo
-rates.  For cosmological runs rebuild the closure when ``a_value``
-changes; for constant-a runs nothing ever needs rebuilding.
+rates, the last two as one scalar block on the context's device
+(api.call_scalars), which the closure's body reads as the stateful
+calls' bodies read theirs.  For cosmological runs rebuild the closure
+when ``a_value`` changes; for constant-a runs nothing ever needs
+rebuilding.
 
 What holds, as the JAX package's closures are "trace-safe": a call reads
 nothing on the host but its loops' exit checks, and inside a CUDA-graph
@@ -80,13 +83,13 @@ import torch
 
 from .api import (
     GrackleContext,
-    _photo_rates,
     _prep_fields,
+    call_scalars,
     shield_length_tensor,
     solve_prepared,
 )
 from .ops import derived as _derived
-from .ops.common import make_unit_scalars
+from .ops.common import block_scalars
 
 __all__ = [
     "make_solve_fn",
@@ -110,6 +113,13 @@ def _resolve_ctx(chem) -> GrackleContext:
     return ctx
 
 
+def _scalars(ctx, grid_dx=0.0):
+    """The closure's scalars, fixed at build time as the JAX closures'
+    are (grackle_tpu/functional.py:20-28): one block on the context's
+    device, as (UnitScalars, PhotoRates, BodyUnits) of 0-d views."""
+    return block_scalars(call_scalars(ctx, ctx.device, grid_dx=grid_dx))
+
+
 def make_solve_fn(chem, grid_dx: float = 0.0):
     """Build ``solve(fields, dt, l_h2shield=None) -> (fields, diag)``.
 
@@ -125,8 +135,7 @@ def make_solve_fn(chem, grid_dx: float = 0.0):
     """
     ctx = _resolve_ctx(chem)
     cfg = ctx.config
-    us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
-    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    us, pr, _ = _scalars(ctx, grid_dx)
 
     def solve(fields, dt, l_h2shield=None):
         f, imetal = _prep_fields(ctx, fields)
@@ -152,8 +161,7 @@ def make_cooling_time_fn(chem):
     """Build ``cooling_time(fields) -> [N]`` (calculate_cooling_time.c)."""
     ctx = _resolve_ctx(chem)
     cfg = ctx.config
-    us = make_unit_scalars(cfg, ctx.tables, ctx.units)
-    pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    us, pr, _ = _scalars(ctx)
     comoving = bool(ctx.units.comoving_coordinates)
 
     def cooling_time(fields):
@@ -170,7 +178,7 @@ def make_cooling_time_fn(chem):
 def make_temperature_fn(chem):
     """Build ``temperature(fields) -> [N]`` (calculate_temperature.c)."""
     ctx = _resolve_ctx(chem)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    us, _, _ = _scalars(ctx)
 
     def temperature(fields):
         f, imetal = _prep_fields(ctx, fields)
@@ -183,7 +191,7 @@ def make_temperature_fn(chem):
 def make_pressure_fn(chem):
     """Build ``pressure(fields) -> [N]`` (calculate_pressure.c)."""
     ctx = _resolve_ctx(chem)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    us, _, _ = _scalars(ctx)
 
     def pressure(fields):
         f, imetal = _prep_fields(ctx, fields)
@@ -195,7 +203,7 @@ def make_pressure_fn(chem):
 def make_gamma_fn(chem):
     """Build ``gamma(fields) -> [N]`` (calculate_gamma.c)."""
     ctx = _resolve_ctx(chem)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    us, _, _ = _scalars(ctx)
 
     def gamma(fields):
         f, imetal = _prep_fields(ctx, fields)
@@ -209,12 +217,12 @@ def make_dust_temperature_fn(chem):
     """Build ``dust_temperature(fields) -> [N]``
     (calculate_dust_temperature.c)."""
     ctx = _resolve_ctx(chem)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
+    us, _, units = _scalars(ctx)
 
     def dust_temperature(fields):
         f, imetal = _prep_fields(ctx, fields)
         return _derived.calculate_dust_temperature(
-            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f,
-            ctx.units, imetal)
+            ctx.config, ctx.tables, ctx.cloudy_primordial, us, f, units,
+            imetal)
 
     return dust_temperature

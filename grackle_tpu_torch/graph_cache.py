@@ -29,14 +29,16 @@ sees no aliasing on either path.
 
 The key is the caller's (entry, path, field names and shapes, solver
 dtype, whether the metal field and a shielding length are given, the
-code units, and the values of the call's ``UnitScalars`` and
-``PhotoRates``: they reach the kernels as scalars baked into the graph),
-plus the device and its current stream, so that calls on two streams
-never share static buffers.  ``dt`` is not in it: it is a static 0-d
-float64 tensor that each call fills.  A cosmological run whose
-``a_value`` changes every call has a new key every call and so runs
-eagerly, where the JAX package traces its unit scalars and photo rates
-and compiles once (grackle_tpu/ops/common.py:52-76, 144).
+comoving flag: what the JAX package's jitted cores take as static), plus
+the device and its current stream, so that calls on two streams never
+share static buffers.  The values a call computes on the host are
+inputs, not part of the key: ``dt``, a 0-d float64 tensor, and the
+call's scalar block (its ``UnitScalars``, ``PhotoRates`` and code units
+in the solver dtype, ops/common.scalar_block), which the body reads
+from device memory, the network kernel included.  So a cosmological run
+whose ``a_value`` changes every call replays one graph, as the JAX
+package, which traces those values, compiles once
+(grackle_tpu/ops/common.py:46-164).
 
 Calls that stay eager, whatever their key:
 
@@ -47,8 +49,19 @@ Calls that stay eager, whatever their key:
   that graph, as ``functional.make_solve_fn`` is;
 - when an input requires grad: a graph records no autograd.
 
-A capture or a replay that fails raises: no call falls back to the
-eager body.
+A second call stays eager, too, where its capture might not fit in the
+card's memory.  Each eager call of a key on the card records the peak
+that its body allocated: the caching allocator's peak counter is reset
+before the body (``torch.cuda.reset_peak_memory_stats``, which a host
+that reads that counter sees) and read after it, less what was
+allocated before.  Under threads that run bodies at once the figure
+takes in the others' allocations too.  A capture goes ahead where twice
+that peak (the graph's pool and its loop bodies' pools, PERF.md) plus
+the static inputs fits in what the card has free together with what the
+allocator holds unused; otherwise the call runs eagerly with the same
+results, ``calls`` counts it as eager, and a later call captures once
+the memory is there.  A capture or a replay that fails all the same
+raises: no call falls back to the eager body.
 
 A card holds at most :data:`MAX_GRAPHS` graphs, those of every context
 together.  A capture that finds the card full drops the least recently
@@ -91,10 +104,14 @@ from .ops import device_loop
 #: replays six of them and runs the rest eagerly (module docstring)
 MAX_GRAPHS = 6
 #: keys a context remembers as called eagerly, each with the tick of its
-#: last call (host memory only).  Bounded so that a run whose key changes
-#: every call (a cosmological a_value) does not grow it without end; a
-#: key forgotten runs eagerly once more
+#: last call and its eager peak (host memory only).  Bounded so that a
+#: host whose key changes with every call (an AMR code whose patch widths
+#: keep changing) does not grow it without end; a key forgotten runs
+#: eagerly once more
 MAX_SEEN = 64
+#: a capture needs about this many times its key's eager peak: the
+#: graph's pool and its loop bodies' pools (module docstring)
+CAPTURE_PEAKS = 2
 
 #: serializes the graph path of every context (module docstring)
 _lock = threading.RLock()
@@ -138,8 +155,8 @@ class GraphCache:
         """The captured entry of a full key (as :meth:`keys` lists it)."""
         return self._graphs[key]
 
-    def _remember(self, key, tick):
-        self._seen[key] = tick
+    def _remember(self, key, tick, peak):
+        self._seen[key] = (tick, peak)
         self._seen.move_to_end(key)
         while len(self._seen) > MAX_SEEN:
             self._seen.popitem(last=False)
@@ -180,6 +197,37 @@ def _capture(body, inputs):
 def _on_card(device) -> bool:
     """Whether calls with inputs on ``device`` capture graphs."""
     return device.type == "cuda"
+
+
+def _measured(device, fn):
+    """``fn()`` and the bytes it allocated on ``device`` at its peak
+    beyond what was allocated before (0 off the card); resets the
+    device's peak counter (module docstring)."""
+    if device.type != "cuda":
+        return fn(), 0
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    return out, max(0, torch.cuda.max_memory_allocated(device) - before)
+
+
+def _free_bytes(device) -> float:
+    """What a capture on ``device`` may allocate: the card's free memory
+    and what the caching allocator holds unused (no limit off the
+    card)."""
+    if device.type != "cuda":
+        return float("inf")
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _fits(device, peak, tensors) -> bool:
+    """Whether a key whose eager body peaked at ``peak`` bytes fits a
+    capture on ``device`` beside static copies of ``tensors``."""
+    need = CAPTURE_PEAKS * peak + sum(t.numel() * t.element_size()
+                                      for t in tensors)
+    return _free_bytes(device) >= need
 
 
 def _tensor_leaves(tree):
@@ -224,14 +272,14 @@ def run(cache: GraphCache, key, body, inputs, keep=None):
         if entry is not None:
             _copy_in(entry, inputs)
             kind = "replay"
-        elif key in cache._seen and _make_room(str(device),
-                                               cache._seen[key]):
+        elif (key in cache._seen
+              and _fits(device, cache._seen[key][1], tensors)
+              and _make_room(str(device), cache._seen[key][0])):
             del cache._seen[key]
             entry = _captured(body, inputs, keep, device)
             cache._graphs[key] = entry
             kind = "capture"
         else:
-            cache._remember(key, tick)
             kind = "eager"
         cache.calls[kind] += 1
         if entry is not None:
@@ -239,7 +287,10 @@ def run(cache: GraphCache, key, body, inputs, keep=None):
             entry.used = tick
             entry.graph.replay()
             return _map_tensors(torch.clone, entry.outputs), kind
-    return _unaliased(body(inputs), tensors), kind
+    out, peak = _measured(device, lambda: body(inputs))
+    with _lock:
+        cache._remember(key, tick, peak)
+    return _unaliased(out, tensors), kind
 
 
 def _captured(body, inputs, keep, device):

@@ -48,7 +48,7 @@ def k_names(cfg):
     return names
 
 
-#: the shield rates carried as [N] arrays (k27 stays a host float)
+#: the shield rates carried as [N] arrays (k27 stays a 0-d tensor)
 SHIELD_ARRAYS = ["k24", "k25", "k26", "k28", "k29", "k30", "k31"]
 
 
@@ -57,7 +57,8 @@ class RateState:
     """Per-cell interpolated rates.
 
     k: dict name -> [N] tensor; shields: dict of k24..k31 ([N] tensors,
-    except k27, the unshielded host float).
+    except k27, the unshielded 0-d photo rate of the call's scalar
+    block).
     """
 
     k: Any
@@ -87,15 +88,21 @@ def _wg2019_shield(N_H2, tgas, ngas):
     return torch.clamp(f_shield, max=1.0)
 
 
+def _cells(rate, like):
+    """A 0-d rate in every cell of ``like``: a fresh contiguous [N]
+    tensor, broadcast on the device (JAX's ``rate * ones_like(d)``)."""
+    return rate.expand_as(like).clone()
+
+
 def _rahmati_fshield(avgsig, k_rate, tgas, nloc, tbase1):
     """Rahmati et al. 2013 Eq. 13/14 shield factor
-    (solve_rate_cool_g.F:1496-1534); avgsig, k_rate, tbase1 host floats."""
-    from .cooling import _spow
-
+    (solve_rate_cool_g.F:1496-1534); avgsig, k_rate, tbase1 0-d
+    tensors.  A zero rate makes the threshold 0 and the factor 0, which
+    the caller's select discards."""
     nssh = (
-        6.73e-3 * _spow(avgsig / 2.49e-18, -2.0 / 3.0)
+        6.73e-3 * torch.pow(avgsig / 2.49e-18, -2.0 / 3.0)
         * torch.pow(tgas / 1.0e4, 0.17)
-        * _spow(k_rate / tbase1 / 1.0e-12, 2.0 / 3.0)
+        * torch.pow(k_rate / tbase1 / 1.0e-12, 2.0 / 3.0)
     )
     nratio = nloc / nssh
     return (0.98 * torch.pow(1.0 + torch.pow(nratio, 1.64), -2.28)
@@ -143,20 +150,20 @@ def lookup_cool_rates(
     # --- radiation shields (solve_rate_cool_g.F:1382-1676) ---
     d = f["density"]
     shields = {
-        "k24": torch.full_like(d, pr.k24),
-        "k25": torch.full_like(d, pr.k25),
-        "k26": torch.full_like(d, pr.k26),
+        "k24": _cells(pr.k24, d),
+        "k25": _cells(pr.k25, d),
+        "k26": _cells(pr.k26, d),
         "k27": pr.k27,  # unshielded scalar (solve_rate_cool_g.F:2286)
-        "k28": torch.full_like(d, pr.k28),
-        "k29": torch.full_like(d, pr.k29),
-        "k30": torch.full_like(d, pr.k30),
+        "k28": _cells(pr.k28, d),
+        "k29": _cells(pr.k29, d),
+        "k30": _cells(pr.k30, d),
     }
 
     if ispecies > 1:
         if cfg.use_radiative_transfer == 1:
             k31shield = pr.k31 + f["RT_H2_dissociation_rate"]
         else:
-            k31shield = torch.full_like(d, pr.k31)
+            k31shield = _cells(pr.k31, d)
 
         if cfg.H2_self_shielding > 0:
             if cfg.H2_self_shielding == 1:
@@ -178,7 +185,7 @@ def lookup_cool_rates(
             k31shield = f["H2_custom_shielding_factor"] * k31shield
         shields["k31"] = k31shield
     else:
-        shields["k31"] = torch.full_like(d, pr.k31)
+        shields["k31"] = _cells(pr.k31, d)
 
     iradshield = cfg.self_shielding_method
     if iradshield > 0:

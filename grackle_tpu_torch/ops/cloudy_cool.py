@@ -30,6 +30,7 @@ def cloudy_cooling(
 ):
     """Return the Cloudy-table edot contribution (code units).
 
+    ``dom``, ``zr`` and ``comp2`` are the call's 0-d unit scalars.
     Mirrors cool1d_cloudy_g.F:98-258: cooling is -10**logLambda, the CMB
     floor is applied as Lambda(T) - Lambda(T_CMB) when
     log10(T) - log10(T_CMB) < 2, heating is added when enabled (and, for
@@ -37,7 +38,7 @@ def cloudy_cooling(
     optionally scaled by metallicity and multiplied by rhoH^2.
     """
     inv_log10 = 1.0 / math.log(10.0)
-    log10_tCMB = math.log10(comp2)
+    log10_tCMB = torch.log10(comp2)
     log10tem = logtem * inv_log10
     log_n_h = torch.log10(rhoH * dom)
 
@@ -67,7 +68,7 @@ def cloudy_cooling(
 
     if icmbTfloor == 1:
         log_cool_cmb = table_interp(
-            cloudy.cooling, torch.full_like(log10tem, log10_tCMB)
+            cloudy.cooling, log10_tCMB.expand_as(log10tem)
         )
         edot_met = torch.where(
             (log10tem - log10_tCMB) < 2.0,
@@ -113,7 +114,7 @@ def cloudy_cooling_old_tables(
     rank > 3), unlike the new-style ``rhoH**2`` scaling.
     """
     inv_log10 = 1.0 / math.log(10.0)
-    log10_tCMB = math.log10(comp2)
+    log10_tCMB = torch.log10(comp2)
     log10tem = logtem * inv_log10
     log_n_h = torch.log10(rhoH * dom)
     log_Z = torch.log10(metallicity)
@@ -148,7 +149,7 @@ def cloudy_cooling_old_tables(
         elif rank == 5:
             # the redshift axis at the call's redshift, in every cell
             return interp.interpolate_5d(
-                log_n_h, log_Z, log_e_frac, torch.full_like(x_temp, zr),
+                log_n_h, log_Z, log_e_frac, zr.expand_as(x_temp),
                 x_temp, cloudy.par1, cloudy.par2, cloudy.par3, cloudy.par4,
                 cloudy.par5, data,
             )
@@ -159,7 +160,7 @@ def cloudy_cooling_old_tables(
 
     if icmbTfloor == 1:
         log_cool_cmb = table_interp(
-            cloudy.cooling, torch.full_like(log10tem, log10_tCMB)
+            cloudy.cooling, log10_tCMB.expand_as(log10tem)
         )
         edot_met = torch.where(
             (log10tem - log10_tCMB) < 2.0,

@@ -1,15 +1,25 @@
-"""Shared host-scalar containers and dtype constants for the solver
+"""Shared per-call scalar containers and dtype constants for the solver
 (port of grackle_tpu/ops/common.py).
 
-Unit scalars and photo rates are host Python floats: every op that meets
-one with a tensor rounds it to the tensor's dtype, so an f32 solve stays
-f32 and an f64 solve stays f64.
+A call's unit scalars and photo rates are computed on the host in f64
+(:func:`make_unit_scalars`, ``data/uvb.update_uvb_rates``), as the
+reference computes them in C per call.  The bodies read them as 0-d
+tensors: :func:`scalar_block` writes a call's values into one small 1-D
+tensor in the solver dtype on the fields' device (one host-to-device
+copy), and :func:`block_scalars` gives its elements back as the fields of
+``UnitScalars``, ``PhotoRates`` and ``BodyUnits``, 0-d views of the
+block.  The JAX package traces the same values as arrays in the solver
+dtype (grackle_tpu/ops/common.py:46-164), so its jitted cores compile
+once whatever the ``a_value``; here a CUDA graph that captured a body
+reads the block's static copy and replays with whatever a later call
+copied into it (graph_cache.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -64,25 +74,33 @@ def dtype_tolerance(dtype):
     return 1.0e-5
 
 
+_US_FIELDS = [
+    "dom", "coolunit", "tbase1", "xbase1", "dbase1", "uvel", "utem",
+    "chunit", "dx_cgs", "c_ljeans", "aye", "zr", "comp1", "comp2",
+]
+
+
 @dataclasses.dataclass(frozen=True)
 class UnitScalars:
     """Per-call unit conversions (solve_rate_cool_g.F:331-343 and
-    cool1d_multi_g.F:185-198), as host floats."""
+    cool1d_multi_g.F:185-198): host floats from
+    :func:`make_unit_scalars`, 0-d tensors in a body
+    (:func:`block_scalars`)."""
 
-    dom: float
-    coolunit: float
-    tbase1: float
-    xbase1: float
-    dbase1: float
-    uvel: float
-    utem: float
-    chunit: float
-    dx_cgs: float
-    c_ljeans: float
-    aye: float
-    zr: float
-    comp1: float
-    comp2: float
+    dom: Any
+    coolunit: Any
+    tbase1: Any
+    xbase1: Any
+    dbase1: Any
+    uvel: Any
+    utem: Any
+    chunit: Any
+    dx_cgs: Any
+    c_ljeans: Any
+    aye: Any
+    zr: Any
+    comp1: Any
+    comp2: Any
 
 
 def make_unit_scalars(cfg, tables, units, grid_dx=0.0) -> UnitScalars:
@@ -128,16 +146,64 @@ _PR_FIELDS = [
 ]
 
 #: Per-call photo-ionization/heating scalars (analogue of
-#: photo_rate_storage, grackle: src/clib/grackle_chemistry_data.h:410-438),
-#: as host floats.
+#: photo_rate_storage, grackle: src/clib/grackle_chemistry_data.h:410-438):
+#: host floats per call, 0-d tensors in a body.
 PhotoRates = dataclasses.make_dataclass(
-    "PhotoRates", [(name, float) for name in _PR_FIELDS], frozen=True,
+    "PhotoRates", [(name, Any) for name in _PR_FIELDS], frozen=True,
 )
+
+#: The ``CodeUnits`` values a body reads besides the unit scalars: the
+#: dust temperature's density unit (calc_tdust_3d_g.F:143-145).
+BodyUnits = dataclasses.make_dataclass(
+    "BodyUnits", [("co_density_units", Any)], frozen=True,
+)
+
+#: a call's scalar block, element by element
+BLOCK_FIELDS = _US_FIELDS + _PR_FIELDS + ["co_density_units"]
 
 
 def photo_rates_from_tables(tables) -> "PhotoRates":
     """Copy the constant photo rates (solve_chemistry.c:120-137)."""
     return PhotoRates(**{f: float(getattr(tables, f)) for f in _PR_FIELDS})
+
+
+def scalar_block(cfg, device, us, pr, units) -> torch.Tensor:
+    """A call's host scalars (``UnitScalars`` and ``PhotoRates`` of host
+    floats, the ``CodeUnits``) as one 1-D tensor of BLOCK_FIELDS on
+    ``device``, each value rounded once from f64 to the solver dtype, as
+    the JAX package rounds each with ``jnp.asarray(x, dtype)``.  On the
+    card the values go over in one copy from pinned memory, which leaves
+    the host free to queue work.  While the current stream captures (a
+    host recording the call into its own graph) they are filled in
+    instead, their values fixed in that graph, as :func:`as_dt` fills a
+    float ``dt``: a recorded copy would read a host buffer at every
+    replay."""
+    values = ([getattr(us, name) for name in _US_FIELDS]
+              + [getattr(pr, name) for name in _PR_FIELDS]
+              + [units.co_density_units])
+    dtype = solver_dtype(cfg)
+    device = torch.device(device)
+    host = torch.tensor(values, dtype=torch.float64).to(dtype)
+    if device.type != "cuda":
+        return host.to(device)
+    if torch.cuda.is_current_stream_capturing():
+        return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                            for v in host.tolist()])
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def block_scalars(block):
+    """The elements of a scalar block (:func:`scalar_block`) as
+    ``(UnitScalars, PhotoRates, BodyUnits)`` of 0-d views: a body reads
+    them from the block's memory, so a graph that captured it replays
+    with whatever values the block then holds."""
+    if block.shape != (len(BLOCK_FIELDS),):
+        raise ValueError(f"scalar block: want shape ({len(BLOCK_FIELDS)},), "
+                         f"got {tuple(block.shape)}")
+    vals = dict(zip(BLOCK_FIELDS, block.unbind(0)))
+    return (UnitScalars(**{k: vals[k] for k in _US_FIELDS}),
+            PhotoRates(**{k: vals[k] for k in _PR_FIELDS}),
+            BodyUnits(co_density_units=vals["co_density_units"]))
 
 
 def div_host(x, c: float):

@@ -49,20 +49,11 @@ def _fssh(nratio):
 
 def _nssh(avgsig, tgas, k_rate, tbase1):
     """Rahmati et al. 2013 self-shielding density threshold
-    (cool1d_multi_g.F:783-786); avgsig, k_rate and tbase1 are host
-    floats."""
-    return (6.73e-3 * _spow(avgsig / 2.49e-18, -2.0 / 3.0)
+    (cool1d_multi_g.F:783-786); avgsig, k_rate and tbase1 are 0-d
+    tensors."""
+    return (6.73e-3 * torch.pow(avgsig / 2.49e-18, -2.0 / 3.0)
             * torch.pow(tgas / 1.0e4, 0.17)
-            * _spow(k_rate / tbase1 / 1.0e-12, 2.0 / 3.0))
-
-
-def _spow(a: float, b: float) -> float:
-    """Host-float power with IEEE results (inf, nan) instead of Python's
-    ZeroDivisionError for a zero base."""
-    import numpy as np
-
-    with np.errstate(all="ignore"):
-        return float(np.power(np.float64(a), b))
+            * torch.pow(k_rate / tbase1 / 1.0e-12, 2.0 / 3.0))
 
 
 def compute_temperature_state(cfg, cloudy_prim, us, f, imetal: bool):
@@ -326,13 +317,15 @@ def cool1d_multi(
                 + pr.piHeII * HeII * 0.25
             ) / dom
         else:
+            # a zero rate (the UVB before its ramp) makes the unselected
+            # factor inf or nan: the select discards it, as JAX's does
             nssh_H = _nssh(pr.crsHI, tgas, pr.k24, us.tbase1)
-            fSShHI = (torch.ones_like(tgas) if pr.k24 < tiny8
-                      else _fssh((HI + HII) * dom / nssh_H))
+            fSShHI = torch.where(pr.k24 < tiny8, 1.0,
+                                 _fssh((HI + HII) * dom / nssh_H))
             nssh_He = _nssh(pr.crsHeI, tgas, pr.k26, us.tbase1)
-            fSShHeI = (torch.ones_like(tgas) if pr.k26 < tiny8
-                       else _fssh(0.25 * (HeI + HeII + HeIII) * dom
-                                  / nssh_He))
+            fSShHeI = torch.where(
+                pr.k26 < tiny8, 1.0,
+                _fssh(0.25 * (HeI + HeII + HeIII) * dom / nssh_He))
             if iradshield == 1:
                 edot = edot + ipiht * (
                     pr.piHI * HI * fSShHI + pr.piHeI * HeI * 0.25

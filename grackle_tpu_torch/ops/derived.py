@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import mh, tiny
+from .common import ipow
 from .cooling import cool1d_multi
 from .dust_temp import calc_tdust_1d
 from .lookup import lookup, table_index
@@ -108,7 +109,8 @@ def calculate_gamma(cfg, cloudy_prim, us, f, imetal: bool):
 
 def calculate_dust_temperature(cfg, tables, cloudy_prim, us, f, units,
                                imetal: bool):
-    """(calculate_dust_temperature.c:55-141 + calc_tdust_3d_g.F:60-186)"""
+    """(calculate_dust_temperature.c:55-141 + calc_tdust_3d_g.F:60-186);
+    ``units`` holds the 0-d ``co_density_units`` (common.BodyUnits)."""
     d = f["density"]
     temperature = calculate_temperature(cfg, cloudy_prim, us, f, imetal)
 
@@ -155,7 +157,7 @@ def calculate_cooling_time(
     from .solver import scale_fields
 
     if comoving:
-        f = scale_fields(cfg, dict(f), us.aye**-3, imetal)
+        f = scale_fields(cfg, dict(f), ipow(us.aye, -3), imetal)
     d = f["density"]
     cool = cool1d_multi(
         cfg, tables, cloudy_prim, cloudy_met, pr, us, f,

@@ -71,7 +71,7 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
       gamma_isrf_coef: scalar ISRF heating coefficient (gamma_isrf rate).
       isrf: per-cell ISRF in Habing units.
       itmask: active-cell mask (bool).
-      trad: CMB temperature (host float).
+      trad: CMB temperature (0-d tensor of the fields' dtype).
       tdust_init: optional warm start (e.g. the previous subcycle's
         solution).  Newton converges to the same equilibrium root
         (tol 1e-5) from any bracketed start, so this only cuts the
@@ -79,7 +79,7 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
 
     Returns dust temperature, shape [N] (calc_tdust_1d_g.F:6-306).
     """
-    trad = max(1.0, trad)
+    trad = torch.clamp(trad, min=1.0)
     trad4 = trad * trad * (trad * trad)
     gamma_isrf = isrf * gamma_isrf_coef
 
@@ -97,7 +97,7 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
     done_cold = trad >= tgas  # radiative equilibrium with CMB
 
     nm_mask = itmask & ~done_cold & ~sub_mask
-    tdust = torch.where(done_cold, torch.full_like(tdust0, trad), tdust0)
+    tdust = torch.where(done_cold, trad, tdust0)
 
     def newton_body(carry, _):
         tdust, pert, nm_mask, bi_mask = carry
@@ -134,7 +134,7 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
     # Bisection fallback (calc_tdust_1d_g.F:209-261): cells that never
     # converged with Newton, found a sub-CMB solution, or have
     # tgas > T_subl.
-    t_low = torch.where(bi_mask, torch.full_like(tgas, trad), tdust)
+    t_low = torch.where(bi_mask, trad, tdust)
     t_high = tgas
     if tdust_init is not None:
         # Warm-started bracket: the equilibrium moves little between

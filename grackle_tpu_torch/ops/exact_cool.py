@@ -30,8 +30,6 @@ networks; src/clib/solve_rate_cool_g.F:443-817).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import interp
@@ -114,7 +112,7 @@ def _node_tables(cfg, cloudy_prim, cloudy_met, pr, us, f, imetal):
         edot_met = -torch.pow(10.0, met_at_nodes)
         del met_at_nodes
         if cfg.cmb_temperature_floor == 1:
-            log10_tCMB = math.log10(us.comp2)
+            log10_tCMB = torch.log10(us.comp2)
             met_cmb = interp.rows_at_scalar_temperature(
                 met_rows, m_par_t, log10_tCMB)  # (N,)
             edot_met = torch.where(

@@ -77,17 +77,17 @@ def index_pick(data, dim, index):
     return data.index_select(dim, index).squeeze(dim)
 
 
-def redshift_index(zr: float, par2, d2):
+def redshift_index(zr, par2, d2):
     """Bisection index + past-the-end flag for the redshift axis of 3-D
     Cloudy tables (grackle: cool1d_cloudy_g.F:128-153).
 
+    ``zr`` is the call's 0-d redshift, in par2's dtype and on its device.
     Returns (zi0, end_int) as 0-d tensors on par2's device: zi0 is the
     0-based lower bracket, clipped to [0, d2-3]; end_int is True when zr is
     at/past the second-to-last redshift, in which case interpolation
     collapses to 2-D at the final table slice.
     """
-    # a fill, not a copy from the host: a CUDA graph may capture this
-    z = torch.full((1,), zr, dtype=par2.dtype, device=par2.device)
+    z = zr.reshape(1).to(par2.dtype)
     zi0 = torch.clamp(
         torch.searchsorted(par2, z, right=True)[0] - 1, 0, d2 - 3
     )
@@ -98,8 +98,7 @@ def redshift_index(zr: float, par2, d2):
     return zi0, end_int
 
 
-def interpolate_3dz(x1, zr: float, x3, par1, par2, par3, data, zi0,
-                    end_int):
+def interpolate_3dz(x1, zr, x3, par1, par2, par3, data, zi0, end_int):
     """Non-uniform middle (redshift) axis in log(1+z), with 2-D fallback
     past the last redshift (interpolators_g.F:186-269,279-338).
 
@@ -164,8 +163,8 @@ def _uniform_frac(x, par, dim):
     return i, frac
 
 
-def collapse_redshift(data, par2, zr: float, zi0, end_int):
-    """The (D1, D2, D3) cube's redshift axis collapsed at the scalar zr
+def collapse_redshift(data, par2, zr, zi0, end_int):
+    """The (D1, D2, D3) cube's redshift axis collapsed at the 0-d zr
     with the log(1+z) rule (interpolators_g.F:252-257), honoring the
     past-the-end 2-D fallback.  Returns (D1, D3)."""
     d2 = data.shape[1]
@@ -200,10 +199,9 @@ def rows_at_temperature(rows, par_t, x_t):
     return lo * (1.0 - f_t) + hi * f_t
 
 
-def rows_at_scalar_temperature(rows, par_t, x_scalar: float):
-    """Row interpolation at one scalar temperature (e.g. T_CMB): the two
-    bracketing columns, weighted."""
-    x = torch.full((), x_scalar, dtype=rows.dtype, device=rows.device)
+def rows_at_scalar_temperature(rows, par_t, x):
+    """Row interpolation at one temperature, a 0-d tensor (e.g. log10 of
+    T_CMB): the two bracketing columns, weighted."""
     i, frac = _uniform_frac(x, par_t, rows.shape[1])
     i = i.reshape(1)
     return (index_pick(rows, 1, i) * (1.0 - frac)

@@ -73,8 +73,10 @@ def network_update(
 
     Parameters
     ----------
-    us : object with ``dom`` and ``chunit`` host-float attributes (the
-        only UnitScalars fields this region consumes).
+    us : object with ``dom`` and ``chunit`` attributes, 0-d tensors of
+        the fields' dtype (the only UnitScalars fields this region
+        consumes; views of the call's scalar block, as the kernel reads
+        them from device memory).
     dt : full-step timestep: a host float or a 0-d tensor on the
         fields' device (ops/common.as_dt; nothing is read on the host).
     f : field dict restricted to :func:`network_field_keys`.

@@ -79,6 +79,11 @@ _H2_LIMIT = _CARRY0 + len(CARRY_SLOTS)
 OUT_FIELD_SLOTS = ["energy"] + SPECIES_SLOTS
 OUT_CARRY_SLOTS = CARRY_SLOTS
 N_OUT = len(OUT_FIELD_SLOTS) + len(OUT_CARRY_SLOTS)
+#: device scalars, in the order of csrc/network_update.cu's enum Scalar:
+#: elements of the call's scalar block (ops/common.scalar_block), read
+#: through a pointer each
+SCALAR_SLOTS = ["dom", "chunit", "k27"]
+N_SCALAR = len(SCALAR_SLOTS)
 #: carry slots that only compensated_sums = 1 uses
 COMPENSATED_SLOTS = ["energy_lo", "ttot_lo"]
 #: the carry's masks and counter; every other operand is the float type
@@ -103,12 +108,10 @@ class _NetworkArgs(ctypes.Structure):
         ("tolerance", ctypes.c_double),
         ("tiny8", ctypes.c_double),
         ("huge8", ctypes.c_double),
-        ("dom", ctypes.c_double),
-        ("chunit", ctypes.c_double),
-        ("k27", ctypes.c_double),
         ("acc", ctypes.c_double),
         ("gamma_m1", ctypes.c_double),
         ("t_start_101", ctypes.c_double),
+        ("scalar", ctypes.c_void_p * N_SCALAR),
         ("inp", ctypes.c_void_p * N_IN),
         ("out", ctypes.c_void_p * N_OUT),
     ]
@@ -176,7 +179,7 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             cint_p = ctypes.POINTER(ctypes.c_int)
-            lib.grackle_network_slots.argtypes = [cint_p, cint_p]
+            lib.grackle_network_slots.argtypes = [cint_p] * 3
             lib.grackle_network_slots.restype = ctypes.c_int
             lib.grackle_network_init.argtypes = [cint_p] * 4
             lib.grackle_network_init.restype = ctypes.c_int
@@ -184,16 +187,18 @@ def load():
                 ctypes.POINTER(_NetworkArgs), ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
             lib.grackle_network_update.restype = ctypes.c_int
-            n_in, n_out = ctypes.c_int(), ctypes.c_int()
+            n_in, n_out, n_scalar = (ctypes.c_int() for _ in range(3))
             size = lib.grackle_network_slots(ctypes.byref(n_in),
-                                             ctypes.byref(n_out))
-            if (n_in.value, n_out.value, size) != (
-                    N_IN, N_OUT, ctypes.sizeof(_NetworkArgs)):
+                                             ctypes.byref(n_out),
+                                             ctypes.byref(n_scalar))
+            if (n_in.value, n_out.value, n_scalar.value, size) != (
+                    N_IN, N_OUT, N_SCALAR, ctypes.sizeof(_NetworkArgs)):
                 raise RuntimeError(
                     "network kernel layout mismatch: library has "
-                    f"{n_in.value} in / {n_out.value} out slots and a "
-                    f"{size}-byte argument struct, the wrapper "
-                    f"{N_IN} / {N_OUT} / {ctypes.sizeof(_NetworkArgs)}"
+                    f"{n_in.value} in / {n_out.value} out / "
+                    f"{n_scalar.value} scalar slots and a {size}-byte "
+                    f"argument struct, the wrapper {N_IN} / {N_OUT} / "
+                    f"{N_SCALAR} / {ctypes.sizeof(_NetworkArgs)}"
                 )
             _lib = lib
     return _lib
@@ -285,7 +290,10 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     and each result written once; ``launch.grid`` the CTAs and
     ``launch.ctas_per_sm`` how many are resident on one SM.  Every tensor
     must be a contiguous [N] CUDA tensor of one device, at any offset;
-    the float operands share one dtype (float32 or float64)."""
+    the float operands share one dtype (float32 or float64).  ``us.dom``,
+    ``us.chunit`` and the shields' ``k27`` are 0-d tensors of that dtype
+    on that device (views of the call's scalar block), which the kernel
+    reads from device memory."""
     slots = input_slots(cfg)
     ispecies = cfg.primordial_chemistry
     compensated = cfg.compensated_sums == 1
@@ -333,10 +341,23 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             optrs[len(OUT_FIELD_SLOTS) + j] = carry_out[name].data_ptr()
     moved += sum(t.element_size() * n for t in
                  list(fields_out.values()) + list(carry_out.values()))
-    # the kernel reads dt from device memory (a graph replays with a new
-    # one)
+    # the kernel reads dt and the scalars from device memory (a graph
+    # replays with new ones)
     dt = as_dt(dt, ref)
     moved += dt.element_size()
+    scalars = {"dom": us.dom, "chunit": us.chunit}
+    if ispecies > 0:
+        scalars["k27"] = rs.shields["k27"]
+    sptrs = [None] * N_SCALAR
+    for name, t in scalars.items():
+        if (not isinstance(t, torch.Tensor) or t.shape != ()
+                or t.device != device or t.dtype != dtype):
+            got = (type(t).__name__ if not isinstance(t, torch.Tensor)
+                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"network kernel scalar {name}: want a 0-d "
+                             f"{dtype} tensor on {device}, got {got}")
+        sptrs[SCALAR_SLOTS.index(name)] = t.data_ptr()
+        moved += t.element_size()
 
     lib = load()
     is_double = int(dtype == torch.float64)
@@ -358,12 +379,11 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
         rt_hydrogen_only=int(cfg.radiative_transfer_hydrogen_only),
         dt=dt.data_ptr(), tolerance=tolerance,
         tiny8=dtype_tiny8(dtype), huge8=dtype_huge8(dtype),
-        dom=float(us.dom), chunit=float(us.chunit),
-        k27=float(rs.shields["k27"]) if ispecies > 0 else 0.0,
         acc=float(cfg.subcycle_accuracy),
         gamma_m1=cfg.Gamma - 1.0,
         t_start_101=1.01 * cfg.TemperatureStart,
     )
+    args.scalar[:] = sptrs
     args.inp[:] = ptrs
     args.out[:] = optrs
 
@@ -377,7 +397,9 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise RuntimeError(f"network kernel launch failed: CUDA error "
                                f"{err}")
 
-    launch.dt = dt  # the kernel reads it at every launch
+    # the kernel reads these at every launch
+    launch.dt = dt
+    launch.scalars = scalars
     launch.bytes = moved
     launch.grid = grid
     launch.ctas_per_sm = ctas_per_sm

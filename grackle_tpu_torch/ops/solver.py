@@ -33,7 +33,7 @@ import torch
 
 from ..constants import tiny
 from . import chemistry_step as cs
-from .common import as_dt, dtype_huge8
+from .common import as_dt, dtype_huge8, ipow
 from .cooling import cool1d_multi
 from .device_loop import device_while, zero_steps
 from .network import network_field_keys
@@ -173,7 +173,7 @@ def prepare_fields(cfg, f, us, imetal: bool, comoving: bool):
     fields and the initial iteration mask."""
     f = dict(f)
     if comoving:
-        f = scale_fields(cfg, f, us.aye**-3, imetal)
+        f = scale_fields(cfg, f, ipow(us.aye, -3), imetal)
     f = ceiling_species(cfg, f, imetal)
 
     itmask0 = torch.ones(f["density"].shape, dtype=torch.bool,
@@ -327,7 +327,7 @@ def finalize_fields(cfg, f, us, imetal: bool, comoving: bool):
     (solve_rate_cool_g.F:870-888)."""
     # proper -> comoving (solve_rate_cool_g.F:870-878)
     if comoving:
-        f = scale_fields(cfg, f, us.aye**3, imetal)
+        f = scale_fields(cfg, f, ipow(us.aye, 3), imetal)
     # conservation renormalization (solve_rate_cool_g.F:884-888)
     if cfg.primordial_chemistry > 0:
         f = cs.make_consistent(cfg, f, imetal)

@@ -128,19 +128,20 @@ def solve_chemistry_sharded(ctx, fields, dt, mesh, grid_dx: float = 0.0,
             ctx, l_h2shield_field))
     f, n_orig = pad_to_multiple(f, len(mesh))
     us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
-    pr = _api._photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
 
-    contexts = {}
+    contexts, blocks = {}, {}
     outs, diags = [], []
     for i, (device, f_local) in enumerate(zip(mesh, shard_fields(f, mesh))):
         device = torch.device(device)
         key = str(device)
         if key not in contexts:
             contexts[key] = context_on(ctx, device)
+            # the call's scalars, one block a device
+            blocks[key] = _api.call_scalars(ctx, device, us)
         l_local = f_local.pop("l_h2shield_field", None)
         new_f, diag = _api.solve_cached(
-            contexts[key], us, pr, f_local, float(dt), imetal, l_local,
-            graphs=ctx.graphs, part=("shard", i, len(mesh)))
+            contexts[key], blocks[key], f_local, float(dt), imetal,
+            l_local, graphs=ctx.graphs, part=("shard", i, len(mesh)))
         outs.append(new_f)
         diags.append(diag)
 

@@ -36,10 +36,9 @@ def main() -> int:
         print("profile_torch_flagship: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from grackle_tpu_torch.api import _prep_fields
+    from grackle_tpu_torch.api import _prep_fields, call_scalars
     from grackle_tpu_torch.ops import chemistry_step, cooling, solver
-    from grackle_tpu_torch.ops.common import (make_unit_scalars,
-                                              photo_rates_from_tables)
+    from grackle_tpu_torch.ops.common import block_scalars
     from grackle_tpu_torch.ops.network_kernel import network_update
 
     ap = argparse.ArgumentParser()
@@ -52,8 +51,8 @@ def main() -> int:
     cd = cs.flagship_chem(opt.precision, "cuda")
     ctx, cfg = cd.context, cd.context.config
     f, imetal = _prep_fields(ctx, cs.flagship_fields(cd, opt.cells))
-    us = make_unit_scalars(cfg, ctx.tables, ctx.units)
-    pr = photo_rates_from_tables(ctx.tables)
+    # the call's unit scalars and photo rates, 0-d views of its block
+    us, pr, _ = block_scalars(call_scalars(ctx, f["density"].device))
     f, itmask0 = solver.prepare_fields(cfg, f, us, imetal, False)
     f_state, f_const = solver.split_state(cfg, f)
     carry = solver.init_carry(f_state, itmask0, cfg)

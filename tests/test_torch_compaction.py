@@ -18,7 +18,7 @@ import torch
 
 from grackle_tpu_torch import api
 from grackle_tpu_torch.ops import solver
-from grackle_tpu_torch.ops.common import make_unit_scalars
+from grackle_tpu_torch.ops.common import block_scalars
 from tests.test_torch_network import port_chem, state
 
 torch.set_num_threads(1)
@@ -76,8 +76,7 @@ def _direct(cd, f, dt, compacted, **kw):
     ctx = cd.context
     cfg = ctx.config
     fields, imetal = api._prep_fields(ctx, f)
-    us = make_unit_scalars(cfg, ctx.tables, ctx.units)
-    pr = api._photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
+    us, pr, _ = block_scalars(api.call_scalars(ctx, "cpu"))
     args = (cfg, ctx.tables, ctx.cloudy_primordial, ctx.cloudy_metal, pr,
             us, fields, dt)
     if compacted:

@@ -29,7 +29,7 @@ from grackle_tpu_torch import api as papi
 from grackle_tpu_torch.data import uvb as puvb
 from grackle_tpu_torch.ops import derived as pderived
 from grackle_tpu_torch.ops import tabulated_temp as ptab
-from grackle_tpu_torch.ops.common import make_unit_scalars
+from grackle_tpu_torch.ops.common import block_scalars
 from tests.answer_workloads import _data_file
 from tests.test_torch_network import UNIT_ATTRS, jax_context_as_port, state
 
@@ -80,7 +80,7 @@ def _both(name):
 def _args(jcd, pctx, f):
     jctx = jcd.context
     jus = jcommon.make_unit_scalars(jctx.config, jctx.tables, jctx.units)
-    pus = make_unit_scalars(pctx.config, pctx.tables, pctx.units)
+    pus, _, _ = block_scalars(papi.call_scalars(pctx, "cpu"))
     jf = {k: jnp.asarray(v) for k, v in f.items()}
     pf = {k: torch.from_numpy(np.asarray(v)) for k, v in f.items()}
     return jctx, jus, jf, pus, pf, "metal" in f
@@ -109,14 +109,14 @@ def test_derived_fields_match(name):
                                     imetal),
            jderived.calculate_gamma(jcfg, jctx.cloudy_primordial, jus, jf,
                                     imetal), "gamma")
+    _, ppr, punits = block_scalars(papi.call_scalars(pctx, "cpu"))
     _close(pderived.calculate_dust_temperature(
                pcfg, pctx.tables, pctx.cloudy_primordial, pus, pf,
-               pctx.units, imetal),
+               punits, imetal),
            jderived.calculate_dust_temperature(
                jcfg, jctx.tables, jctx.cloudy_primordial, jus, jf,
                jctx.units, imetal), "dust_temperature")
     comoving = bool(jctx.units.comoving_coordinates)
-    ppr = papi._photo_rates(pcfg, pctx.tables, pctx.uvb, pctx.units)
     jpr = japi._photo_rates(jcfg, jctx.tables, jctx.uvb, jctx.units)
     _close(pderived.calculate_cooling_time(
                pcfg, pctx.tables, pctx.cloudy_primordial, pctx.cloudy_metal,

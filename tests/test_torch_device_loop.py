@@ -29,9 +29,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import chip_smoke
 import grackle_tpu.functional as jfn
 import grackle_tpu_torch.functional as gfn
-from grackle_tpu_torch import api
+from grackle_tpu_torch import api, graph_cache
 from grackle_tpu_torch.ops import device_loop, network, solver
-from grackle_tpu_torch.ops.common import as_dt, make_unit_scalars
+from grackle_tpu_torch.ops.common import as_dt, block_scalars
 from tests.test_functional import make_chem as jax_chem
 from tests.test_functional import make_fc as jax_fc
 from tests.test_torch_functional import _fields_of, make_chem, make_fc
@@ -189,8 +189,7 @@ def _compacted_direct():
     cd, f = _flagship(64, n=24)
     ctx = cd.context
     fields, imetal = api._prep_fields(ctx, f)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    pr = api._photo_rates(ctx.config, ctx.tables, ctx.uvb, ctx.units)
+    us, pr, _ = block_scalars(api.call_scalars(ctx, "cpu"))
     dt = torch.tensor(DT_READS, dtype=torch.float64)
 
     def run():
@@ -347,6 +346,56 @@ def test_no_loop_no_read(case, no_host_reads):
     with no_host_reads:
         run()
     assert no_host_reads.reads == 0
+
+
+class _Recorded:
+    """What the graph cache uses of a captured graph: its replay."""
+
+    def replay(self):
+        pass
+
+
+#: stateful calls whose body the graph cache captures, each with whether
+#: its body has a loop: a solve in comoving units with the UVB (and with
+#: its self-shielding, whose factors select on the photo rates), a
+#: cooling time likewise, and the exact path in comoving units
+STATEFUL_CASES = {
+    "solve_comoving_uvb": ("solve_chemistry", COMOVING, True),
+    "solve_comoving_uvb_shielded": (
+        "solve_chemistry", dict(COMOVING, self_shielding_method=3), True),
+    "cooling_time_comoving_uvb": ("calculate_cooling_time", COMOVING, True),
+    "solve_exact_comoving": ("solve_chemistry", dict(
+        primordial_chemistry=0, metal_cooling=1, exact_cooling=1,
+        comoving_coordinates=1, a_value=0.5), False),
+}
+
+
+@pytest.mark.parametrize("case", list(STATEFUL_CASES))
+def test_stateful_body_reads(case, no_host_reads, monkeypatch):
+    """The body a stateful call captures, at a key's second call on a new
+    a_value, reads nothing on the host but its loops' reads: the unit
+    scalars and photo rates that the call computed on the host reach it
+    as the scalar block, an input like the fields, and no tensor is made
+    from host data inside it."""
+    entry, kw, loops = STATEFUL_CASES[case]
+    cd = chip_smoke.answer_chem("cpu", **kw)
+    f = (chip_smoke.tabulated_state(cd, 16) if cd.primordial_chemistry == 0
+         else chip_smoke.answer_state(cd, n=16))
+
+    def capture(body, inputs):
+        with no_host_reads:
+            return _Recorded(), body(inputs)
+
+    monkeypatch.setattr(graph_cache, "_on_card", lambda device: True)
+    monkeypatch.setattr(graph_cache, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    args = (dict(f), DT_READS) if entry == "solve_chemistry" else (dict(f),)
+    getattr(cd, entry)(*args)
+    cd.a_value = 0.55
+    getattr(cd, entry)(*args)
+    assert cd.context.graphs.calls == {"eager": 1, "capture": 1}
+    assert (no_host_reads.reads > 0) == loops
 
 
 # --- a tensor dt has the bits of a float dt -----------------------------

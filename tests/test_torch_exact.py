@@ -35,8 +35,9 @@ from grackle_tpu_torch.config import default_config, resolve_config
 from grackle_tpu_torch.data.cloudy import CloudyTable
 from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
 from grackle_tpu_torch.ops import exact_cool, interp
-from grackle_tpu_torch.ops.common import (make_unit_scalars,
-                                          photo_rates_from_tables)
+from grackle_tpu_torch.ops.common import (block_scalars, make_unit_scalars,
+                                          photo_rates_from_tables,
+                                          scalar_block)
 from grackle_tpu_torch.rates.tables import build_rate_tables
 from grackle_tpu_torch.units import CodeUnits
 from tests.test_torch_derived import _jax_chem
@@ -88,14 +89,17 @@ def test_row_forms_match():
             pt = CloudyTable(grid_rank=rank, grid_dimension=data.shape,
                              **{f"par{i + 1}": torch.from_numpy(p)
                                 for i, p in enumerate(pars)})
-            pz = (interp.redshift_index(zr, pt.par2, 10) if rank == 3
+            # the port reads the call's scalars as 0-d tensors
+            zr_t = torch.tensor(zr, dtype=torch.float64)
+            pz = (interp.redshift_index(zr_t, pt.par2, 10) if rank == 3
                   else (None, None))
             rows = interp.temperature_rows(pt, torch.from_numpy(data),
-                                           torch.from_numpy(x1), zr, *pz)
+                                           torch.from_numpy(x1), zr_t, *pz)
             got = [rows, interp.rows_at_temperature(
                 rows, torch.from_numpy(par_t), torch.from_numpy(xt))]
             got += [interp.rows_at_scalar_temperature(
-                rows, torch.from_numpy(par_t), x) for x in SCALAR_T]
+                rows, torch.from_numpy(par_t),
+                torch.tensor(x, dtype=torch.float64)) for x in SCALAR_T]
 
             @jax.jit
             def jax_forms(data, x1, xt, pars, zr=zr, rank=rank):
@@ -166,8 +170,9 @@ def test_constant_lambda_matches_analytic_and_jax(monkeypatch):
     jcfg = jresolve_config(jdefault_config(**opts))
     units, junits = CodeUnits(**_units_kw()), JCodeUnits(**_units_kw())
     tables = build_rate_tables(cfg, units)
-    us = make_unit_scalars(cfg, tables, units, 0.0)
-    pr = photo_rates_from_tables(tables)
+    host_us = make_unit_scalars(cfg, tables, units, 0.0)
+    us, pr, _ = block_scalars(scalar_block(
+        cfg, "cpu", host_us, photo_rates_from_tables(tables), units))
     jtables = jbuild(jcfg, junits, dtype=jnp.float64)
     jus = jcommon.make_unit_scalars(jcfg, jtables, junits, 0.0)
     jpr = jcommon.photo_rates_from_tables(jtables)
@@ -184,7 +189,7 @@ def test_constant_lambda_matches_analytic_and_jax(monkeypatch):
     rng = np.random.RandomState(2)
     d = 10.0 ** rng.uniform(-1, 2, n)
     T0 = 10.0 ** rng.uniform(5.0, 7.0, n)
-    e0 = T0 / ((cfg.Gamma - 1.0) * 0.6 * us.utem)
+    e0 = T0 / ((cfg.Gamma - 1.0) * 0.6 * host_us.utem)
     dt = 1.0e-3
     got = exact_cool.exact_cool_step(
         cfg, prim, CloudyTable(grid_rank=0, grid_dimension=()), pr, us,
@@ -229,8 +234,7 @@ def test_exact_cool_step_matches_jax(metal):
     jcd, ctx = _tab_contexts(metal)
     jctx = jcd.context
     f = chip_smoke.tabulated_state(jcd, 256, metal)
-    us = make_unit_scalars(ctx.config, ctx.tables, ctx.units)
-    pr = api._photo_rates(ctx.config, ctx.tables, None, ctx.units)
+    us, pr, _ = block_scalars(api.call_scalars(ctx, "cpu"))
     jax_step = {running: jax_exact_step(
         jctx.config, jctx.cloudy_primordial, jctx.cloudy_metal,
         jcommon.photo_rates_from_tables(jctx.tables),

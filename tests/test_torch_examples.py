@@ -10,10 +10,12 @@ cooling_rate in full for chemistry 0 to 3; cooling_cell and both
 freefall cases over a stated prefix of their stored trajectories (each is
 deterministic, so a shorter FINAL_TIME or a lower final density gives a
 prefix of the full run).  A one-cell step of the port costs the CPU about
-0.1 s of op dispatch, so the full trajectories (28,443, 748 and 414
-steps) are held on the card (chip_smoke.py phase 4h), and cooling_rate
-with chemistry 2 and 3 (about 20 s each) and the full freefall runs are
-marked slow.  The functional_jit example is held by
+0.1 s of op dispatch, so the longer trajectories are held on the card:
+both freefall runs in full (748 and 414 steps) and cooling_cell's first
+500 steps by chip_smoke.py phase 4h, and cooling_cell's whole 28,443
+steps by ``python3 chip_smoke.py --cooling-cell-full``, a card run of
+its own (about 1,000 s); cooling_rate with chemistry 2 and 3 (about
+20 s each) and the full freefall runs are marked slow here.  The functional_jit example is held by
 tests/test_torch_functional.py.
 """
 

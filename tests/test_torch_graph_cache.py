@@ -15,7 +15,13 @@ on the card.
   each with new inputs and a new dt, against the JAX package's
   ``solve_chemistry`` at rtol 1e-6 (tests/test_answers.py's tolerance),
   the first call's results unchanged after the third;
-- a changed ``a_value`` or ``grid_dx`` makes a new entry;
+- a cosmological run: four flagship calls in comoving units with the
+  UVB, each at a new ``a_value``, under one key (eager, capture,
+  replay, replay), each against the JAX package at that ``a_value``;
+- a changed ``a_value`` or ``grid_dx`` replays the entry it has, a
+  changed comoving flag makes a new one;
+- a second call whose capture would not fit in the card's free memory
+  stays eager, and captures once the memory is there;
 - the least recently used graph goes at the bound, which counts every
   context's graphs on the card, and a key that would drop a graph used
   since its own last call stays eager;
@@ -26,6 +32,7 @@ on the card.
 - no call's result aliases its inputs on the exact path.
 """
 
+import dataclasses
 import gc
 import weakref
 
@@ -204,6 +211,72 @@ def test_three_calls_match_jax(jax_flagship, stand_in):
                                    rtol=1e-6, atol=0, err_msg=key)
 
 
+# --- a cosmological run: one key whatever the a_value -------------------
+
+
+#: the expansion factors of the cosmological calls (z = 1 to 0.89, the
+#: UVB on), each call's state seed and dt
+COSMO_CALLS = ((0.50, 21, 1.0e-8), (0.51, 22, 2.0e-8), (0.52, 23, 1.0e-8),
+               (0.53, 24, 3.0e-8))
+
+
+@pytest.fixture(scope="module")
+def jax_cosmological():
+    """The JAX package's flagship in comoving units with the UVB from the
+    data file that ``jax_flagship`` reads, its solve at each a_value of
+    COSMO_CALLS (units refreshed each time, as a cosmological host does),
+    and its context carried over to the port."""
+    jcd = JChemistryData()
+    for k, v in dict(UNIT_ATTRS, use_grackle=1, with_radiative_cooling=1,
+                     precision=64, use_fused_lookup=0,
+                     primordial_chemistry=3, metal_cooling=1,
+                     dust_chemistry=1, cmb_temperature_floor=1,
+                     UVbackground=1, comoving_coordinates=1, a_units=1.0,
+                     a_value=COSMO_CALLS[0][0],
+                     grackle_data_file=_data_file()).items():
+        setattr(jcd, k, v)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlookup, "pair_split", lambda mat: None)
+        assert jcd.initialize() == 1
+    ctx = jax_context_as_port(jcd)
+    recipe = chip_smoke.flagship_chem(64, "cpu")
+    calls = []
+    for a_value, seed, dt in COSMO_CALLS:
+        jcd.a_value = a_value
+        jcd.refresh_units()
+        fields = chip_smoke.flagship_fields(recipe, N_FLAGSHIP, seed=seed)
+        new_f, diag = jcd.solve_chemistry(dict(fields), dt)
+        calls.append((a_value, fields, dt,
+                      {k: np.asarray(v) for k, v in new_f.items()},
+                      np.asarray(diag["cell_iterations"])))
+    return ctx, calls
+
+
+def test_cosmological_run_replays_one_graph(jax_cosmological, stand_in):
+    """A cosmological host: every call at a new a_value, the units
+    refreshed before it.  The unit scalars and the UVB photo rates reach
+    the body through the call's scalar block, so the calls are eager,
+    capture, replay, replay under one key, as the JAX package compiles
+    its core once; each call within rtol 1e-6 of the JAX package at its
+    a_value, with the same per-cell subcycles."""
+    ctx, calls = jax_cosmological
+    kinds = []
+    for a_value, fields, dt, want_f, want_it in calls:
+        ctx.units = dataclasses.replace(ctx.units, a_value=a_value)
+        kind, (got_f, got_d) = _call(ctx.graphs, api.solve_chemistry, ctx,
+                                     _tensors(fields), dt)
+        kinds.append(kind)
+        np.testing.assert_array_equal(got_d["cell_iterations"].numpy(),
+                                      want_it, err_msg=str(a_value))
+        for key in want_f:
+            np.testing.assert_allclose(got_f[key].numpy(), want_f[key],
+                                       rtol=1e-6, atol=0,
+                                       err_msg=f"{a_value} {key}")
+    assert kinds == ["eager", "capture", "replay", "replay"]
+    assert len(ctx.graphs) == 1 and len(stand_in) == 1
+    assert stand_in[0].replays == 3
+
+
 # --- the key --------------------------------------------------------------
 
 
@@ -211,11 +284,16 @@ def _chem1(**kw):
     return chip_smoke.answer_chem("cpu", primordial_chemistry=1, **kw)
 
 
-@pytest.mark.parametrize("change", ["a_value", "grid_dx"])
+@pytest.mark.parametrize("change", ["a_value", "grid_dx",
+                                    "comoving_coordinates"])
 def test_changed_units_make_a_new_entry(change, stand_in):
-    """The unit scalars are baked into a graph, so a changed a_value (a
-    cosmological run's next step) or grid_dx is a new key: eager first,
-    captured at its second call; the old graph stays."""
+    """A changed a_value (a cosmological run's next step) or grid_dx
+    reaches the graph through the call's scalar block: the call replays
+    the entry it has, bit-identical to a fresh uncached solve at the new
+    units (a new a_value moves the results).  The comoving flag changes
+    what the body does and is static to the JAX package's cores too: a
+    changed flag is a new key, eager first, captured at its second call;
+    the old graph stays."""
     cd = _chem1()
     fields = _tensors(chip_smoke.answer_state(cd, n=8))
 
@@ -223,21 +301,57 @@ def test_changed_units_make_a_new_entry(change, stand_in):
         return _call(cd.context.graphs, cd.solve_chemistry, dict(fields),
                      1.0e-9, **kw)
 
-    assert [solve()[0] for _ in range(3)] == ["eager", "capture", "replay"]
+    kinds, outs = zip(*[solve() for _ in range(3)])
+    assert list(kinds) == ["eager", "capture", "replay"]
+    first_f, _ = outs[0]
     kw = {}
     if change == "a_value":
         cd.a_value = 0.5
-    else:
+    elif change == "grid_dx":
         kw["grid_dx"] = 1.0e-3
+    else:
+        cd.comoving_coordinates = 1
     kind, (new_f, _) = solve(**kw)
+    with chip_smoke.uncached():
+        want_f, _ = cd.solve_chemistry(dict(fields), 1.0e-9, **kw)
+    for key in want_f:
+        assert torch.equal(new_f[key], want_f[key]), key
+    if change == "a_value":
+        assert not torch.equal(new_f["energy"], first_f["energy"])
+    if change != "comoving_coordinates":
+        assert kind == "replay" and len(cd.context.graphs) == 1
+        return
     assert kind == "eager" and len(cd.context.graphs) == 1
     kind, (again_f, _) = solve(**kw)
     assert kind == "capture" and len(cd.context.graphs) == 2
     for key in new_f:
         assert torch.equal(again_f[key], new_f[key]), key
-    old_us = cd.context.graphs.keys()[0][0][6]
-    new_us = cd.context.graphs.keys()[1][0][6]
-    assert old_us != new_us
+    assert [key[0][4] for key in cd.context.graphs.keys()] == [False, True]
+
+
+def test_capture_that_does_not_fit_stays_eager(stand_in, monkeypatch):
+    """A key's second call whose capture would not fit in the card's free
+    memory (the query patched to report none) stays eager, counted so,
+    with the uncached body's results; once the memory is there the next
+    call captures and replays."""
+    cd = _chem1()
+    fields = _tensors(chip_smoke.answer_state(cd, n=8))
+    with chip_smoke.uncached():
+        want_f, _ = cd.solve_chemistry(dict(fields), 1.0e-9)
+    free = [0]
+    monkeypatch.setattr(graph_cache, "_free_bytes", lambda device: free[0])
+    kinds = []
+    for call in range(5):
+        if call == 3:
+            free[0] = float("inf")
+        kind, (got_f, _) = _call(cd.context.graphs, cd.solve_chemistry,
+                                 dict(fields), 1.0e-9)
+        kinds.append(kind)
+        for key in want_f:
+            assert torch.equal(got_f[key], want_f[key]), (call, key)
+    assert kinds == ["eager", "eager", "eager", "capture", "replay"]
+    assert cd.context.graphs.calls == {"eager": 3, "capture": 1,
+                                       "replay": 1}
 
 
 def test_least_recently_used_dropped_at_the_bound(stand_in, monkeypatch):

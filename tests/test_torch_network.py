@@ -32,8 +32,9 @@ from grackle_tpu_torch.ops import cooling as pcooling
 from grackle_tpu_torch.ops import dust_temp as pdust
 from grackle_tpu_torch.ops import network as pnetwork
 from grackle_tpu_torch.ops import network_kernel
-from grackle_tpu_torch.ops.common import (make_unit_scalars,
-                                          photo_rates_from_tables)
+from grackle_tpu_torch.ops.common import (block_scalars, make_unit_scalars,
+                                          photo_rates_from_tables,
+                                          scalar_block)
 from grackle_tpu_torch.rates.tables import ARRAY_FIELDS, SCALAR_FIELDS
 from grackle_tpu_torch.utilities.physical_constants import mass_hydrogen_cgs
 
@@ -126,7 +127,9 @@ def network_args(cfg, inp, to_array):
             h2dust=None if rs.h2dust is None
             else to_array(rs.h2dust.numpy()),
             shields=arr(rs.shields), ti=None)
-    us = types.SimpleNamespace(dom=inp["us"].dom, chunit=inp["us"].chunit)
+    # the unit scalars as each package's body reads them: 0-d arrays
+    us = types.SimpleNamespace(dom=to_array(inp["us"].dom.numpy()),
+                               chunit=to_array(inp["us"].chunit.numpy()))
     h2 = host["h2_limit"]
     return (cfg, us, inp["dt"],
             {k: to_array(v) for k, v in host["f"].items()}, rate_state,
@@ -194,8 +197,10 @@ def _both_units(jcd, pctx):
     jctx = jcd.context
     jus = jcommon.make_unit_scalars(jctx.config, jctx.tables, jctx.units)
     jpr = jcommon.photo_rates_from_tables(jctx.tables)
-    pus = make_unit_scalars(pctx.config, pctx.tables, pctx.units)
-    ppr = photo_rates_from_tables(pctx.tables)
+    pus, ppr, _ = block_scalars(scalar_block(
+        pctx.config, "cpu",
+        make_unit_scalars(pctx.config, pctx.tables, pctx.units),
+        photo_rates_from_tables(pctx.tables), pctx.units))
     return jus, jpr, pus, ppr
 
 
@@ -360,9 +365,13 @@ def test_kernel_layout_matches_source():
 
     ins = enum("In")
     outs = enum("Out")
+    scalars = enum("Scalar")
     nk = network_kernel
     assert ins[-1] == "N_IN" and outs[-1] == "N_OUT"
     assert len(ins) - 1 == nk.N_IN and len(outs) - 1 == nk.N_OUT
+    # the device scalars, read through pointers into the scalar block
+    assert scalars == [f"S_{s}" for s in nk.SCALAR_SLOTS] + ["N_SCALAR"]
+    assert len(scalars) - 1 == nk.N_SCALAR
     assert [s[2:] for s in ins[:len(nk.FIELD_SLOTS)]] == nk.FIELD_SLOTS
     # every input slot; the source names the shield slots s24.. and the
     # cooling results' tgasold/tdust cool_*
@@ -380,7 +389,7 @@ def test_kernel_layout_matches_source():
     ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
              "double": ctypes.c_double, "const void*": ctypes.c_void_p,
              "void*": ctypes.c_void_p}
-    dims = {"N_IN": nk.N_IN, "N_OUT": nk.N_OUT}
+    dims = {"N_IN": nk.N_IN, "N_OUT": nk.N_OUT, "N_SCALAR": nk.N_SCALAR}
     fields = []
     for decl in filter(None, (d.strip() for d in body.split(";"))):
         kind, names = re.match(r"(const void\*|void\*|long long|int|double)"

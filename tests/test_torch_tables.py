@@ -226,14 +226,17 @@ def test_interpolation_matches(dtype):
 
     for zr in [0.0, 0.37, 3.3, 8.9, 10.0, 12.0]:
         zi_j, end_j = jinterp.redshift_index(zr, jnp.asarray(par2), 10)
-        zi_p, end_p = pinterp.redshift_index(zr, torch.from_numpy(par2), 10)
+        # the port reads the call's redshift as a 0-d tensor
+        zr_p = torch.tensor(zr, dtype=torch.from_numpy(par2).dtype)
+        zi_p, end_p = pinterp.redshift_index(zr_p, torch.from_numpy(par2),
+                                             10)
         assert int(zi_p) == int(zi_j) and bool(end_p) == bool(end_j), zr
         want = jinterp.interpolate_3dz(
             jnp.asarray(x1), zr, jnp.asarray(x3), jnp.asarray(par1),
             jnp.asarray(par2), jnp.asarray(par3), jnp.asarray(data3),
             zi_j, end_j)
         got = pinterp.interpolate_3dz(
-            torch.from_numpy(x1), zr, torch.from_numpy(x3),
+            torch.from_numpy(x1), zr_p, torch.from_numpy(x3),
             torch.from_numpy(par1), torch.from_numpy(par2),
             torch.from_numpy(par3), torch.from_numpy(data3), zi_p, end_p)
         # log(1+z) of a host float: libm vs XLA's log, a few ulps apart
