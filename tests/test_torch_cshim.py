@@ -173,7 +173,7 @@ def _run(exe, marker, *args):
     env = cshim_build.run_env("cpu")
     env["GRACKLE_TPU_TORCH_LAUNCH_LOG"] = log
     r = subprocess.run([exe, *args], capture_output=True, text=True,
-                       timeout=300, env=env, cwd=os.path.dirname(exe))
+                       timeout=120, env=env, cwd=os.path.dirname(exe))
     assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
     assert marker in r.stdout
     with open(log) as fh:
@@ -363,7 +363,7 @@ def test_c_example_without_a_card_fails(tmp_path):
     exe = _compile(tmp_path, "c_example.c")
     env = cshim_build.run_env("cpu")
     del env["GRACKLE_TPU_TORCH_DEVICE"]
-    r = subprocess.run([exe], capture_output=True, text=True, timeout=300,
+    r = subprocess.run([exe], capture_output=True, text=True, timeout=120,
                        env=env, cwd=str(tmp_path))
     assert r.returncode != 0
     assert "C_EXAMPLE_SUCCESS" not in r.stdout

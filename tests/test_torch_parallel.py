@@ -298,7 +298,7 @@ def test_two_process_gloo_group(tmp_path):
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=300)
+            out, _ = p.communicate(timeout=60)
             outs.append(out)
     finally:
         for p in procs:
