@@ -18,8 +18,8 @@ body.  Phases:
 
 0. device: the card's name and power limit (nvidia-smi), torch and its
    CUDA, nvcc and the driver;
-1. build: nvcc of csrc/network_update.cu and csrc/graph_loop.cu, started
-   together, with their build seconds;
+1. build: nvcc of csrc/network_update.cu, csrc/graph_loop.cu and
+   csrc/cloudy_interp.cu, started together, with their build seconds;
 2. kernel vs twin: the network-region inputs of the flagship state at the
    first and at a later subcycle, f64 and f32, at every cell and at the
    compacted path's tile and batch widths, then at the batch width plus
@@ -36,6 +36,20 @@ body.  Phases:
    deuterium updates, compensated_sums, radiative transfer with and
    without radiative_transfer_hydrogen_only, tabulated mode with the
    UVB) at 4,096 cells, subcycles 0 and 6;
+2c. the Cloudy kernels (csrc/cloudy_interp.cu) against their twins, bit
+   for bit, f64 and f32: the tabulated mu fixed point (imetal 0 and 1, on
+   the table's mmw and on a zigzag mmw that leaves about half of the
+   cells at TI_MAX) and the new-style Cloudy cooling (icmbTfloor, iClHeat
+   and iZscale each on and off) on rank 1, 2 and 3 tables, rank 3 below
+   its first redshift, between two, on a node, at its second-to-last and
+   past its last, at 1, 4,096 and 262,144 cells whose n_H and T lie past
+   both edges of the grid; the Cloudy launches of every subcycle body of
+   an eager and a capturing stateful call (3 a tabulated body, 1 a
+   flagship body) with no interpolate_3dz on the card; a fixed-point and
+   a cooling call whose input requires grad, each one launch with the
+   twin's gradient; tabulated stateful calls replayed at changing
+   a_values (across the table's redshift edges), each bit-identical to
+   the uncached body, with 3 Cloudy launches run a subcycle;
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
@@ -160,8 +174,11 @@ an eager launch counted by the wrapper on the host, a launch recorded
 into a graph counted on the card at every replay by a node beside it
 (ops/network_kernel.count_replays), a host program of 4i or 4k counting
 its own through GRACKLE_TPU_TORCH_LAUNCH_LOG; the loop kernel's are 4m's
-and 4n's replays' launches, which it counts on the device), and the
-last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
+and 4n's replays' launches, which it counts on the device; the Cloudy
+kernels' are counted in the same runs as the network kernel's and in the
+same way, ops/cloudy_kernel.count_replays, but for the host programs of
+4i and 4k, which report only the network kernel's, and exclude phase
+2c's direct calls), and the last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
 jax nor grackle_tpu.
@@ -216,6 +233,15 @@ PEAK_OPS_PER_S = {8: 17.0e12, 4: 33.5e12}
 #: float output must be bit-identical, in f32 and f64
 KERNEL_RTOL = 0.0
 ANSWER_RTOL = 1.0e-6
+#: phase 2c: the Cloudy kernels' widths; the redshift and density
+#: indices at which its rank-2 and rank-1 tables are cut from the rank-3
+#: ones; the cells of its tabulated stateful calls and their a_values
+#: (eager and capturing at the first, then replays: z = 2.3, -0.2, 9.5
+#: and 12, the last two past the second-to-last table redshift)
+CLOUDY_WIDTHS = (1, 4096, 262_144)
+CLOUDY_SLICE = (3, 12)
+N_CLOUDY_STATE = 4096
+CLOUDY_A_VALUES = (1.0, 1.0, 1 / 3.3, 1.25, 1 / 10.5, 1 / 13.0)
 #: phase 4c: the dt of tests/test_exact_cooling.py's exact-vs-subcycled
 #: check, where the subcycled solve takes a handful of accurate steps, and
 #: its bounds on the relative energy difference (test_exact_cooling.py:
@@ -370,8 +396,9 @@ def flagship_fields(cd, n, seed=11):
     return fc._solver_fields()
 
 
-def answer_chem(device, **kw):
-    """tests/answer_workloads._base_chem on the port."""
+def answer_chem(device, cloudy_data=None, **kw):
+    """tests/answer_workloads._base_chem on the port (on ``cloudy_data``,
+    by default the synthetic Cloudy groups, where it reads tables)."""
     from grackle_tpu_torch.api import ChemistryData
     from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
 
@@ -385,8 +412,10 @@ def answer_chem(device, **kw):
         setattr(cd, k, v)
     reads_tables = (cd.metal_cooling or cd.UVbackground
                     or cd.primordial_chemistry == 0)
-    cd.initialize(device=device, cloudy_data=(
-        synthetic_cloudy_groups() if reads_tables else None))
+    if reads_tables and cloudy_data is None:
+        cloudy_data = synthetic_cloudy_groups()
+    cd.initialize(device=device,
+                  cloudy_data=cloudy_data if reads_tables else None)
     return cd
 
 
@@ -923,14 +952,14 @@ def device_fields(fields, device="cuda"):
 
 
 def zero_launches():
-    """Set the network kernel's launch counts to 0: the wrapper's host
-    launches and, counted on the card, those of graph replays (armed
-    here for the graphs captured from now on)."""
-    from grackle_tpu_torch.ops.network_kernel import (count_replays,
-                                                      zero_launch_counts)
+    """Set the network and the Cloudy kernels' launch counts to 0: the
+    wrappers' host launches and, counted on the card, those of graph
+    replays (armed here for the graphs captured from now on)."""
+    from grackle_tpu_torch.ops import cloudy_kernel, network_kernel
 
-    count_replays("cuda")
-    zero_launch_counts()
+    for mod in (network_kernel, cloudy_kernel):
+        mod.count_replays("cuda")
+        mod.zero_launch_counts()
 
 
 def launches_run():
@@ -940,6 +969,15 @@ def launches_run():
                                                       replayed_launches)
 
     return network_update_cuda.launches + replayed_launches()
+
+
+def cloudy_launches_run():
+    """The Cloudy kernels' launches since zero_launches() that ran on the
+    card: the eager ones and the graph replays' (counted on the card,
+    read here)."""
+    from grackle_tpu_torch.ops.cloudy_kernel import executed_launches
+
+    return executed_launches()
 
 
 @contextlib.contextmanager
@@ -1258,6 +1296,155 @@ def capture_network_inputs(cd, fields, dt, at):
     return captured
 
 
+def cloudy_tables(cd):
+    """Phase 2c's new-style Cloudy tables on ``cd``'s device, in its
+    dtype: {rank: (primordial, metals)}.  Rank 3 are the context's (the
+    synthetic 25 x 10 x 121 groups, with their heating tables and the
+    primordial mmw), rank 2 their slices at redshift index
+    CLOUDY_SLICE[0], rank 1 those slices' rows at density index
+    CLOUDY_SLICE[1]."""
+    import dataclasses
+
+    zs, ns = CLOUDY_SLICE
+
+    def cut(t, rank):
+        if rank == 3:
+            return t
+        index = (slice(None), zs) if rank == 2 else (ns, zs)
+        pars = (t.par1, t.par3) if rank == 2 else (t.par3,)
+        return dataclasses.replace(
+            t, grid_rank=rank, grid_dimension=tuple(p.shape[0] for p in pars),
+            par1=pars[0], par2=pars[1] if rank == 2 else None, par3=None,
+            **{k: None if getattr(t, k) is None
+               else getattr(t, k)[index].contiguous()
+               for k in ("cooling", "heating", "mmw")})
+
+    ctx = cd.context
+    return {rank: (cut(ctx.cloudy_primordial, rank),
+                   cut(ctx.cloudy_metal, rank)) for rank in (1, 2, 3)}
+
+
+def zigzag_mmw(table):
+    """``table`` with a mmw that alternates 0.6, 1.25 from one temperature
+    node to the next: the damped fixed point bounces on it, and about
+    half of the cells reach TI_MAX unconverged."""
+    import dataclasses
+
+    import torch
+
+    n_t = table.grid_dimension[-1]
+    zig = torch.where(torch.arange(n_t, device=table.mmw.device) % 2 == 0,
+                      0.6, 1.25).to(table.mmw.dtype)
+    return dataclasses.replace(
+        table, mmw=zig.expand(table.grid_dimension).contiguous())
+
+
+def cloudy_cells(table, n, us, gamma, seed=5):
+    """Phase 2c's cells on ``table``'s device, in its dtype: log10 n_H a
+    decade and log10 T half a decade past both edges of the table's axes
+    (from -6 to 4 in n_H for rank 1), metal fractions 0 to 0.04 (every
+    seventh cell none), mu 0.55 to 1.3 in the energy.  Returns the fixed
+    point's d, metal, e, rhoH and the cooling's logtem, rhoH and
+    metallicity."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    axes = [table.par1, table.par2, table.par3][:table.grid_rank]
+    t_lo, t_hi = float(axes[-1][0]), float(axes[-1][-1])
+    n_lo, n_hi = ((float(axes[0][0]) - 1.0, float(axes[0][-1]) + 1.0)
+                  if table.grid_rank > 1 else (-6.0, 4.0))
+    log_t = rng.uniform(t_lo - 0.5, t_hi + 0.5, n)
+    z = rng.uniform(0.0, 0.04, n)
+    z[::7] = 0.0
+    rhoH = 10.0 ** rng.uniform(n_lo, n_hi, n) / float(us.dom)
+    d = rhoH / (0.76 * (1.0 - z))
+    e = 10.0 ** log_t / ((gamma - 1.0) * rng.uniform(0.55, 1.3, n)
+                         * float(us.utem))
+    arrays = dict(d=d, metal=z * d, e=e, rhoH=rhoH,
+                  logtem=np.log(10.0) * log_t, metallicity=z / 0.01295)
+    return {k: torch.as_tensor(v, dtype=table.par1.dtype,
+                               device=table.par1.device)
+            for k, v in arrays.items()}
+
+
+def cloudy_redshifts(table):
+    """Phase 2c's redshifts of a rank-3 table, named: below its first
+    redshift, between two, on a node, at its second-to-last (where the
+    2-D fallback starts) and past its last.  Each is a 0-d tensor of the
+    table's dtype on its device."""
+    import torch
+
+    par2 = table.par2
+    d2 = par2.shape[0]
+
+    def full(z):
+        return torch.full((), z, dtype=par2.dtype, device=par2.device)
+
+    return [("below the first", full(-0.2)),
+            ("between", full(0.5 * float(par2[2] + par2[3]))),
+            ("on a node", par2[4].clone()),
+            ("at the second-to-last", par2[d2 - 2].clone()),
+            ("past the last", full(float(par2[d2 - 1]) + 2.0))]
+
+
+def cells_at_ti_max(fixed_point, args, metal):
+    """The cells with metal that ``fixed_point`` (the kernel or its twin,
+    called with ``args`` as ops/tabulated_temp.tabulated_temperature is,
+    imetal last) leaves at TI_MAX unconverged: those whose mu the metal
+    correction, which applies at convergence, leaves as it was."""
+    raw = fixed_point(*args[:-1], False)[1]
+    corrected = fixed_point(*args[:-1], True)[1]
+    return int(((raw == corrected) & (metal > 0)).sum())
+
+
+def cloudy_bit_differences(kern, twin):
+    """(elements whose bits differ, their largest absolute difference)
+    of two tuples of float tensors."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    n, worst = 0, 0.0
+    for k, t in zip(kern, twin):
+        if k.dtype != t.dtype or k.shape != t.shape:
+            raise AssertionError(f"kernel {k.dtype}{tuple(k.shape)} against "
+                                 f"twin {t.dtype}{tuple(t.shape)}")
+        bad = k.view(ints[k.dtype]) != t.view(ints[t.dtype])
+        n += int(bad.sum())
+        if bad.any():
+            worst = max(worst, float((k - t).abs()[bad].max()))
+    return n, worst
+
+
+def cloudy_launches_per_body(cd, fields, dt, calls=1):
+    """Cloudy kernel launches of each subcycle body (ops/solver.subcycle)
+    that ``calls`` stateful solves of ``fields`` issue (eager, capturing,
+    replayed: a replay runs no Python), and the calls of
+    ops/interp.interpolate_3dz on CUDA tensors meanwhile."""
+    from grackle_tpu_torch.ops import cloudy_kernel, interp, solver
+
+    per_body, on_card = [], 0
+    subcycle, interpolate_3dz = solver.subcycle, interp.interpolate_3dz
+
+    def counted(*args, **kw):
+        before = sum(cloudy_kernel.launches.values())
+        out = subcycle(*args, **kw)
+        per_body.append(sum(cloudy_kernel.launches.values()) - before)
+        return out
+
+    def watched(x1, *args, **kw):
+        nonlocal on_card
+        on_card += x1.device.type == "cuda"
+        return interpolate_3dz(x1, *args, **kw)
+
+    solver.subcycle, interp.interpolate_3dz = counted, watched
+    try:
+        for _ in range(calls):
+            cd.solve_chemistry(dict(fields), dt)
+    finally:
+        solver.subcycle, interp.interpolate_3dz = subcycle, interpolate_3dz
+    return per_body, on_card
+
+
 def map_inputs(inp, fn):
     """Captured network inputs with ``fn`` applied to every tensor."""
     import dataclasses
@@ -1419,9 +1606,23 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
+        self.cloudy = dict(
+            name="cloudy_interp", route="cuda",
+            source="grackle_tpu_torch/csrc/cloudy_interp.cu",
+            # no TPU kernel: the Cloudy lookups are gathers in the JAX
+            # package (grackle_tpu/ops/interp.py, tabulated_temp.py,
+            # cloudy_cool.py)
+            replaces="grackle_tpu/ops/interp.py:interpolate_3dz",
+            launches=None, max_abs_err=None, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None,
+        )
         #: kernel launches of each main-path run, counted from 0 just
         #: before it: the kernel line's launches are their sum
         self.path_launches = {}
+        #: the Cloudy kernels' launches of the same runs (the host
+        #: programs of 4i and 4k aside, which count only the network
+        #: kernel's): the cloudy_interp line's launches are their sum
+        self.cloudy_path_launches = {}
         #: nvidia-smi's name and power limit of the card (phase 0)
         self.card = "not read"
 
@@ -1465,30 +1666,32 @@ class Smoke:
                 f"{nvcc[-1] if nvcc else 'not found'}; driver {driver}")
 
     def build(self):
-        """Both kernels' libraries, one nvcc each, started together."""
+        """The kernels' libraries, one nvcc each, started together."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from grackle_tpu_torch.ops import graph_loop, network_kernel
+        from grackle_tpu_torch.ops import (cloudy_kernel, graph_loop,
+                                           network_kernel)
 
         def timed(mod):
             t0 = time.time()
             path = mod.build()
             return path, time.time() - t0
 
+        mods = (network_kernel, graph_loop, cloudy_kernel)
         t0 = time.time()
-        with ThreadPoolExecutor(2) as pool:
-            builds = list(pool.map(timed, (network_kernel, graph_loop)))
+        with ThreadPoolExecutor(len(mods)) as pool:
+            builds = list(pool.map(timed, mods))
         wall = time.time() - t0
-        network_kernel.load()
-        graph_loop.load()
-        (net, net_s), (loop, loop_s) = builds
-        log = " ".join(network_kernel.build_log.split())
+        for mod in mods:
+            mod.load()
+        built = ", ".join(f"{os.path.relpath(path, REPO)} in {secs:.2f} s"
+                          for path, secs in builds)
         rt, drv = graph_loop.versions
-        return (f"built {os.path.relpath(net, REPO)} in {net_s:.2f} s and "
-                f"{os.path.relpath(loop, REPO)} in {loop_s:.2f} s, "
-                f"{wall:.2f} s together; the loop library's CUDA runtime "
-                f"{rt}, driver {drv}; network ptxas: "
-                f"{log or '(cached build)'}")
+        return (f"built {built}, {wall:.2f} s together; the loop library's "
+                f"CUDA runtime {rt}, driver {drv}; network ptxas: "
+                f"{' '.join(network_kernel.build_log.split()) or '(cached)'}"
+                f"; Cloudy ptxas: "
+                f"{' '.join(cloudy_kernel.build_log.split()) or '(cached)'}")
 
     def check_kernel(self, label, cfg, inp):
         """Kernel vs twin on one set of captured network inputs (the
@@ -1609,6 +1812,194 @@ class Smoke:
                              f"{'/'.join(worst)}")
         return "; ".join(parts)
 
+    def cloudy_kernels(self):
+        """The Cloudy kernels (csrc/cloudy_interp.cu) against their twins
+        on the card, bit for bit, f64 and f32: the fixed point (imetal 0
+        and 1, the table's mmw and a zigzag one on which cells reach
+        TI_MAX) and the cooling (every combination of icmbTfloor,
+        iClHeat and iZscale) on rank 1, 2 and 3 tables, rank 3 at each of
+        cloudy_redshifts, at CLOUDY_WIDTHS cells past both edges of the
+        grid.  Then a call of each whose input requires grad: one
+        launch, the kernel's values, the twin's gradient bit for bit.
+        Then the launches of each subcycle body of a tabulated
+        (chemistry 0, metal cooling, UVB) and of the flagship solve,
+        eager and capturing, with no interpolate_3dz on the card; and
+        tabulated stateful calls replayed at the CLOUDY_A_VALUES, each
+        bit-identical to the uncached body at that a_value, with 3
+        Cloudy launches run a subcycle (replays counted on the card)."""
+        import itertools
+
+        import torch
+
+        from grackle_tpu_torch.api import call_scalars
+        from grackle_tpu_torch.ops import (cloudy_cool, cloudy_kernel,
+                                           tabulated_temp)
+        from grackle_tpu_torch.ops.common import block_scalars
+
+        parts, failed = [], []
+        checks = differing = 0
+        worst = 0.0
+        for precision in (64, 32):
+            cd = answer_chem("cuda", primordial_chemistry=0, metal_cooling=1,
+                             UVbackground=1, precision=precision)
+            cfg = cd.context.config
+            us, _, _ = block_scalars(call_scalars(cd.context, "cuda"))
+            tables = cloudy_tables(cd)
+            cells = cloudy_cells(tables[3][0], max(CLOUDY_WIDTHS), us,
+                                 cfg.Gamma)
+            stuck = []
+            for rank, (prim, met) in tables.items():
+                zs = (cloudy_redshifts(prim) if rank == 3
+                      else [("", us.zr)])
+                for zname, zr in zs:
+                    comp2 = 2.73 * (1.0 + zr)
+                    for n in CLOUDY_WIDTHS:
+                        c = {k: v[:n] for k, v in cells.items()}
+                        label = f"f{precision} rank {rank} {zname} {n}"
+                        runs = []
+                        for table, imetal in itertools.product(
+                                (prim, zigzag_mmw(prim)), (False, True)):
+                            runs.append((
+                                f"{label} fixed point imetal {int(imetal)}"
+                                f"{' zigzag' if table is not prim else ''}",
+                                cloudy_kernel.fixed_point_cuda,
+                                tabulated_temp.tabulated_temperature,
+                                (table, c["d"], c["metal"], c["e"],
+                                 c["rhoH"], us.dom, zr,
+                                 cfg.TemperatureStart, cfg.Gamma, us.utem,
+                                 imetal)))
+                        for flags in itertools.product((0, 1), repeat=3):
+                            runs.append((
+                                f"{label} cooling flags {flags}",
+                                cloudy_kernel.cooling_cuda,
+                                cloudy_cool.cloudy_cooling,
+                                (met, c["logtem"], c["rhoH"],
+                                 c["metallicity"], us.dom, zr, comp2,
+                                 *flags)))
+                        for what, kern, twin, args in runs:
+                            got = kern(*args)
+                            want = twin(*args)
+                            got = got if isinstance(got, tuple) else (got,)
+                            want = (want if isinstance(want, tuple)
+                                    else (want,))
+                            bad, diff = cloudy_bit_differences(got, want)
+                            checks += 1
+                            differing += bad
+                            worst = max(worst, diff)
+                            if bad:
+                                failed.append(f"{what}: {bad} differ, max "
+                                              f"abs {diff:.3e}")
+                        if n == max(CLOUDY_WIDTHS):
+                            stuck.append(cells_at_ti_max(
+                                cloudy_kernel.fixed_point_cuda,
+                                (zigzag_mmw(prim), c["d"], c["metal"],
+                                 c["e"], c["rhoH"], us.dom, zr,
+                                 cfg.TemperatureStart, cfg.Gamma, us.utem,
+                                 True), c["metal"]))
+            if min(stuck) == 0:
+                raise AssertionError(f"f{precision}: a zigzag case had no "
+                                     f"cell at TI_MAX ({stuck})")
+            parts.append(f"f{precision}: {min(stuck)} to {max(stuck)} of "
+                         f"the {int((cells['metal'] > 0).sum())} of "
+                         f"{max(CLOUDY_WIDTHS)} cells with metal at TI_MAX "
+                         f"on the zigzag table")
+        self.cloudy["max_abs_err"] = worst
+        if failed:
+            raise AssertionError(f"{len(failed)} of {checks} checks differ "
+                                 f"from the twin: " + "; ".join(failed[:8]))
+        parts.insert(0, f"{checks} kernel-vs-twin checks bit-identical")
+
+        # a call whose input requires grad launches the kernel too, and
+        # its backward gives the twin's gradient
+        n = 4096
+        prim, met = tables[3]
+        for name, route, twin, args, wrt in (
+                ("fixed point", cloudy_kernel.tabulated_temperature,
+                 tabulated_temp.tabulated_temperature,
+                 (prim, cells["d"][:n], cells["metal"][:n],
+                  cells["e"][:n], cells["rhoH"][:n], us.dom, us.zr,
+                  cfg.TemperatureStart, cfg.Gamma, us.utem, True), 3),
+                ("cooling", cloudy_kernel.cloudy_cooling,
+                 cloudy_cool.cloudy_cooling,
+                 (met, cells["logtem"][:n], cells["rhoH"][:n],
+                  cells["metallicity"][:n], us.dom, us.zr,
+                  2.73 * (1.0 + us.zr), 1, 1, 1), 1)):
+            runs = []
+            for fn in (route, twin):
+                x = args[wrt].clone().requires_grad_(True)
+                before = sum(cloudy_kernel.launches.values())
+                out = fn(*args[:wrt], x, *args[wrt + 1:])
+                out = out if isinstance(out, tuple) else (out,)
+                launched = sum(cloudy_kernel.launches.values()) - before
+                sum(o.sum() for o in out).backward()
+                runs.append((launched, tuple(o.detach() for o in out),
+                             x.grad))
+            (launched, values, grad), (_, _, twin_grad) = runs
+            with torch.no_grad():
+                kernel = route(*args)
+            bad = cloudy_bit_differences(
+                values, kernel if isinstance(kernel, tuple) else (kernel,))[0]
+            off = cloudy_bit_differences((grad,), (twin_grad,))[0]
+            finite = bool(torch.isfinite(grad).all())
+            if launched != 1 or bad or off or not finite:
+                raise AssertionError(
+                    f"a {name} call that requires grad: {launched} "
+                    f"launches, {bad} values off the kernel's, gradient "
+                    f"finite {finite}, {off} elements off the twin's")
+        parts.append("a fixed-point and a cooling call whose input "
+                     "requires grad: one launch each, the kernel's values, "
+                     "a finite gradient bit-identical to the twin's")
+
+        # launches of each subcycle body, eager and capturing
+        for name, want in (("tabulated", 3), ("flagship", 1)):
+            if name == "tabulated":
+                cd = answer_chem("cuda", primordial_chemistry=0,
+                                 metal_cooling=1, UVbackground=1)
+                fields = tabulated_state(cd, N_CLOUDY_STATE)
+            else:
+                cd = flagship_chem(64, "cuda")
+                fields = flagship_fields(cd, N_CLOUDY_STATE)
+            per_body, on_card = cloudy_launches_per_body(
+                cd, fields, 1.0e-4, calls=2)
+            kinds = dict(cd.context.graphs.calls)
+            if set(per_body) != {want} or on_card:
+                raise AssertionError(
+                    f"{name}: Cloudy launches a subcycle body "
+                    f"{sorted(set(per_body))} (want {want}), "
+                    f"interpolate_3dz on the card {on_card} times")
+            parts.append(f"{name}: {want} Cloudy launches in each of "
+                         f"{len(per_body)} subcycle bodies ({kinds}), no "
+                         f"interpolate_3dz on the card")
+
+        # tabulated stateful calls at changing a_values
+        # (3 Cloudy launches a subcycle, counted on the card in a replay)
+        cd = answer_chem("cuda", primordial_chemistry=0, metal_cooling=1,
+                         UVbackground=1)
+        fields = device_fields(tabulated_state(cd, N_CLOUDY_STATE))
+        graphs = cd.context.graphs
+        kinds = []
+        for a_value in CLOUDY_A_VALUES:
+            cd.a_value = a_value
+            zero_launches()
+            kind, got, _ = stateful_call(graphs, cd.solve_chemistry,
+                                         dict(fields), 1.0e-4)
+            ran = cloudy_launches_run()
+            if ran != 3 * int(got[1]["subcycles"]):
+                raise AssertionError(f"a_value {a_value}, {dict(kind)}: "
+                                     f"{ran} Cloudy launches ran for "
+                                     f"{got[1]['subcycles']} subcycles")
+            with uncached():
+                want = cd.solve_chemistry(dict(fields), 1.0e-4)
+            differ = tree_differences(got, want)
+            if differ:
+                raise AssertionError(f"a_value {a_value}: {differ} differ "
+                                     f"from the uncached body")
+            kinds.append("/".join(sorted(kind)))
+        parts.append(f"tabulated calls at a_value {CLOUDY_A_VALUES}: "
+                     f"{', '.join(kinds)}, each bit-identical to the "
+                     f"uncached body and 3 Cloudy launches run a subcycle")
+        return "; ".join(parts)
+
     def answers(self):
         """The stored answers; then the functional_jit example and the
         old-style rank-4 cooling time, each against the port's CPU run
@@ -1675,6 +2066,7 @@ class Smoke:
             kinds, (new_f, diag), wall = stateful_call(
                 cd.context.graphs, cd.solve_chemistry, fields, DT_FLAGSHIP)
             launches = launches_run()
+            cloudy = cloudy_launches_run()
             if kinds != {kind: 1}:
                 raise AssertionError(f"f{precision}: call {len(walls) + 1} "
                                      f"was {dict(kinds)}, not {kind}")
@@ -1703,6 +2095,7 @@ class Smoke:
         eager_s, capture_s, wall = walls
         if precision == 64:
             self.path_launches["compacted"] = launches
+            self.cloudy_path_launches["compacted"] = cloudy
             self.compact64 = (new_f, diag, wall)
             self.compact64_eager = eager_s
             self.flagship64 = cd
@@ -1855,6 +2248,7 @@ class Smoke:
         from grackle_tpu_torch import chemistry_data, setup_fluid_container
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
         from grackle_tpu_torch.ops import device_loop, graph_loop
+        from grackle_tpu_torch.ops import cloudy_kernel
         from grackle_tpu_torch.ops.network_kernel import replayed_launches
         from grackle_tpu_torch.utilities.physical_constants import (
             cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
@@ -2111,6 +2505,8 @@ class Smoke:
                                  f"launches and {loop_launches} loop "
                                  f"kernel launches")
         self.path_launches["captured_replays"] = replayed
+        self.cloudy_path_launches["captured_replays"] = \
+            cloudy_kernel.replayed_launches()
         self.loop["launches"] = loop_launches
         parts.append(f"replays: {replayed} network kernel launches and "
                      f"{loop_launches} loop kernel launches (both counted "
@@ -2158,7 +2554,7 @@ class Smoke:
         def gib(b):
             return "not measured" if b is None else f"{b / 2**30:.3f} GiB"
 
-        parts, launch_total = [], [0]
+        parts, launch_total, cloudy_total = [], [0], [0]
 
         def report(label, walls, first_capture, extra=""):
             kinds = []
@@ -2195,6 +2591,7 @@ class Smoke:
             zero_launches()
             kinds, got, wall = stateful_call(graphs, call, *args)
             launches = launches_run()
+            cloudy_total[0] += cloudy_launches_run()
             where = f"{label}, {kind} call"
             if set(kinds) != {kind}:
                 raise AssertionError(f"{where}: the cache made {dict(kinds)}")
@@ -2313,6 +2710,7 @@ class Smoke:
                                 f"{launches_run()} launches for "
                                 f"{solve_launches(got)} subcycles")
                         launch_total[0] += launches_run()
+                        cloudy_total[0] += cloudy_launches_run()
                         for key, val in got[0].items():
                             if not bool(torch.isfinite(val).all()):
                                 raise AssertionError(
@@ -2472,6 +2870,7 @@ class Smoke:
         parts.append(released_pools(pools_before))
         print(f"[4n pools] {parts[-1]}", flush=True)
         self.path_launches["stateful_replays"] = launch_total[0]
+        self.cloudy_path_launches["stateful_replays"] = cloudy_total[0]
         loop = int(launches_dev)
         self.loop["launches"] = (self.loop["launches"] or 0) + loop
         parts.append(f"stateful calls: {launch_total[0]} network kernel "
@@ -2938,6 +3337,7 @@ class Smoke:
             raise AssertionError(f"make_solve_fn vs compacted differ in "
                                  f"{differ}")
         self.path_launches["functional"] = launches
+        self.cloudy_path_launches["functional"] = cloudy_launches_run()
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
                 f"{diag['trips']} trips) against phase 4's stateful "
@@ -2987,6 +3387,7 @@ class Smoke:
         if worst > ANSWER_RTOL:
             raise AssertionError(msg)
         self.path_launches["old_style"] = launches
+        self.cloudy_path_launches["old_style"] = cloudy_launches_run()
         self.old5 = (new_f, diag)
         return msg
 
@@ -3024,6 +3425,7 @@ class Smoke:
                                  f"(phase 4 {comp_d['subcycles']}), differ "
                                  f"in {differ}")
         self.path_launches["serialization"] = launches
+        self.cloudy_path_launches["serialization"] = cloudy_launches_run()
         return (f"f64 flagship restored from {len(json.dumps(state))} bytes "
                 f"of JSON: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s, "
                 f"no warm-up; phase 4 {comp_wall:.3f} s), {launches} "
@@ -3069,6 +3471,7 @@ class Smoke:
                 f"{diag['subcycles']}, trips {diag['trips']}, differ from "
                 f"phase 4b in {differ}")
         self.path_launches["sharded"] = launches
+        self.cloudy_path_launches["sharded"] = cloudy_launches_run()
         msg = (f"f64 flagship on {N_SHARDS} shards of {width} cells "
                f"({mesh[0]}): {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s,"
                f" no warm-up), per-shard n_iterations "
@@ -3134,7 +3537,7 @@ class Smoke:
             kinds.update(cd.context.graphs.calls - before)
             return out
 
-        parts, failed, total = [], [], 0
+        parts, failed, total, cloudy = [], [], 0, 0
         api.ChemistryData.solve_chemistry = counted
         try:
             for tag, steps, run in runs:
@@ -3149,6 +3552,7 @@ class Smoke:
                 wall = time.time() - t0
                 launches = launches_run()
                 total += launches
+                cloudy += cloudy_launches_run()
                 worst = max(answer_errors(f"examples/{tag}", out,
                                           steps).values())
                 span = "in full" if steps is None else \
@@ -3167,6 +3571,7 @@ class Smoke:
             raise AssertionError(f"{failed} off their answers: "
                                  + "; ".join(parts))
         self.path_launches["examples"] = total
+        self.cloudy_path_launches["examples"] = cloudy
         return "; ".join(parts)
 
     def c_abi(self):
@@ -3269,6 +3674,8 @@ class Smoke:
 
         msg, self.path_launches["flagship_from_file"] = \
             self.flagship_from_file(path)
+        self.cloudy_path_launches["flagship_from_file"] = \
+            cloudy_launches_run()
         parts.append(msg)
 
         before = os.environ.get("GRACKLE_DATA_FILE")
@@ -3296,6 +3703,7 @@ class Smoke:
         if worst > ANSWER_RTOL or not launches:
             raise AssertionError("; ".join(parts))
         self.path_launches["example_from_file"] = launches
+        self.cloudy_path_launches["example_from_file"] = cloudy_launches_run()
         return "; ".join(parts)
 
     @staticmethod
@@ -3476,6 +3884,8 @@ class Smoke:
 
             msg, self.path_launches["flagship_from_written_file"] = \
                 self.flagship_from_file(paths["synthetic.h5"])
+            self.cloudy_path_launches["flagship_from_written_file"] = \
+                cloudy_launches_run()
             parts.append(msg)
 
             cd = old_style_chem("cuda", 5, paths["old_style_rank5.h5"])
@@ -3483,6 +3893,8 @@ class Smoke:
                 cd, answer_state(cd, n=N_FLAGSHIP), self.old5,
                 "old-style rank 5 from the written file against phase 4e")
             self.path_launches["old_style_from_written_file"] = launches
+            self.cloudy_path_launches["old_style_from_written_file"] = \
+                cloudy_launches_run()
             parts.append(f"f64 old-style rank 5, chemistry 1 from "
                          f"old_style_rank5.h5, {N_FLAGSHIP} cells: "
                          f"{wall:.3f} s, {launches} launches, {n_fields} "
@@ -3538,6 +3950,7 @@ def main() -> int:
     smoke.phase("2 kernel vs twin", smoke.kernel_vs_twin)
     smoke.phase("2b kernel vs twin, every configuration",
                 smoke.kernel_configs)
+    smoke.phase("2c Cloudy kernels vs twins", smoke.cloudy_kernels)
     smoke.phase("3 stored answers", smoke.answers)
     smoke.phase("4 flagship f64", lambda: smoke.flagship(64))
     smoke.phase("4 flagship f32", lambda: smoke.flagship(32))
@@ -3559,8 +3972,11 @@ def main() -> int:
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())
+    smoke.cloudy["launches"] = sum(smoke.cloudy_path_launches.values())
     print(f"[launches] {smoke.path_launches}", flush=True)
-    print(json.dumps({"kernels": [smoke.kernel, smoke.loop]}), flush=True)
+    print(f"[Cloudy launches] {smoke.cloudy_path_launches}", flush=True)
+    print(json.dumps({"kernels": [smoke.kernel, smoke.loop, smoke.cloudy]}),
+          flush=True)
     if not smoke.ok or only is not None:
         return 1
     print(json.dumps({"ok": True, "device": {

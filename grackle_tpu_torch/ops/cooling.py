@@ -15,11 +15,10 @@ from typing import Any
 import torch
 
 from ..constants import mh, tiny
-from . import cloudy_cool
+from . import cloudy_cool, cloudy_kernel
 from .common import dtype_tiny8
 from .dust_temp import calc_tdust_1d
 from .lookup import TableLookup, table_index
-from .tabulated_temp import tabulated_temperature
 
 MU_METAL = 16.0  # approx. mean molecular weight of metals
 
@@ -72,7 +71,7 @@ def compute_temperature_state(cfg, cloudy_prim, us, f, imetal: bool):
         fh = cfg.HydrogenFractionByMass
         metal = f["metal"] if imetal else torch.zeros_like(d)
         rhoH = fh * (d - metal) if imetal else fh * d
-        tgas, mmw = tabulated_temperature(
+        tgas, mmw = cloudy_kernel.tabulated_temperature(
             cloudy_prim, d, metal, e, rhoH, us.dom, us.zr,
             cfg.TemperatureStart, gamma, us.utem, imetal,
         )
@@ -346,7 +345,7 @@ def cool1d_multi(
 
     # --- tabulated primordial cooling (cool1d_multi_g.F:917-947) ---
     if ispecies == 0:
-        edot = edot + cloudy_cool.cloudy_cooling(
+        edot = edot + cloudy_kernel.cloudy_cooling(
             cloudy_prim, logtem, rhoH, metallicity, dom, us.zr, us.comp2,
             icmbTfloor=0, iClHeat=cfg.UVbackground, iZscale=0,
         )
@@ -404,7 +403,7 @@ def cool1d_multi(
     # --- Cloudy metal cooling (cool1d_multi_g.F:1069-1097) ---
     if cfg.metal_cooling == 1:
         if cloudy_data_new:
-            edot = edot + cloudy_cool.cloudy_cooling(
+            edot = edot + cloudy_kernel.cloudy_cooling(
                 cloudy_met, logtem, rhoH, metallicity, dom, us.zr,
                 us.comp2, icmbTfloor=cfg.cmb_temperature_floor,
                 iClHeat=cfg.UVbackground, iZscale=1,

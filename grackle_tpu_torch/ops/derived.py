@@ -12,11 +12,11 @@ from __future__ import annotations
 import torch
 
 from ..constants import mh, tiny
+from . import cloudy_kernel
 from .common import ipow
 from .cooling import cool1d_multi
 from .dust_temp import calc_tdust_1d
 from .lookup import lookup, table_index
-from .tabulated_temp import tabulated_temperature
 
 MU_METAL = 16.0
 MINIMUM_TEMPERATURE = 1.0
@@ -72,7 +72,7 @@ def calculate_temperature(cfg, cloudy_prim, us, f, imetal: bool):
         d = f["density"]
         metal = f["metal"] if imetal else torch.zeros_like(d)
         rhoH = _tabulated_rhoH(cfg, f, imetal)
-        tgas, _ = tabulated_temperature(
+        tgas, _ = cloudy_kernel.tabulated_temperature(
             cloudy_prim, d, metal, f["energy"], rhoH, us.dom, us.zr,
             cfg.TemperatureStart, cfg.Gamma, us.utem, imetal,
         )

@@ -416,21 +416,13 @@ def network_update_cuda(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
                                     h2_limit)
     launch()
     if torch.cuda.is_current_stream_capturing():
-        # the launch is recorded, not run: a node beside it counts it
-        # each time it runs (atomically: graphs replay on several streams)
-        armed = _replay_counters.get(_device_index(launch.dt.device))
-        if armed is not None:
-            count, index, one = armed
-            count.index_add_(0, index, one)
+        _replays.record(launch.dt.device)
     else:
         network_update_cuda.launches += 1
     return result
 
 
 network_update_cuda.launches = 0
-#: per device index: (count, index, one), int64 tensors of one element on
-#: that device, where count_replays armed the device's replay count
-_replay_counters: dict = {}
 
 
 def _device_index(device) -> int:
@@ -439,33 +431,70 @@ def _device_index(device) -> int:
             else torch.cuda.current_device())
 
 
+class ReplayCounter:
+    """A count, on each armed card, of the launches that CUDA graphs make
+    when they replay: a launch recorded into a capture on an armed device
+    gets a node beside it that adds 1 each time it runs (atomically:
+    graphs replay on several streams).  Graphs captured before a device
+    was armed are not counted."""
+
+    def __init__(self):
+        #: per device index: (count, index, one), int64 tensors of one
+        #: element on that device
+        self._armed = {}
+
+    def arm(self, device):
+        """Count on ``device`` from now on; a no-op off the card and where
+        the device already counts.  Not inside a capture."""
+        if torch.device(device).type != "cuda":
+            return
+        index = _device_index(device)
+        if index not in self._armed:
+            dev = torch.device("cuda", index)
+            self._armed[index] = (
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.ones(1, dtype=torch.int64, device=dev))
+
+    def record(self, device):
+        """Inside a capture, beside a launch recorded on ``device``: the
+        counting node, where the device is armed."""
+        armed = self._armed.get(_device_index(device))
+        if armed is not None:
+            count, index, one = armed
+            count.index_add_(0, index, one)
+
+    def total(self) -> int:
+        """The replayed launches since arming or zeroing, summed over the
+        devices (reads them on the host)."""
+        return sum(int(count) for count, _, _ in self._armed.values())
+
+    def zero(self):
+        for count, _, _ in self._armed.values():
+            count.zero_()
+
+
+_replays = ReplayCounter()
+
+
 def count_replays(device):
     """Count on ``device`` the network launches that CUDA graphs captured
     from now on make when they replay (graphs captured before are not
     counted); a no-op off the card and where the device already counts.
     Not inside a capture."""
-    if torch.device(device).type != "cuda":
-        return
-    index = _device_index(device)
-    if index not in _replay_counters:
-        dev = torch.device("cuda", index)
-        _replay_counters[index] = (
-            torch.zeros(1, dtype=torch.int64, device=dev),
-            torch.zeros(1, dtype=torch.int64, device=dev),
-            torch.ones(1, dtype=torch.int64, device=dev))
+    _replays.arm(device)
 
 
 def replayed_launches() -> int:
     """The network launches that graphs replayed since the counts were
     armed or zeroed, summed over the devices (reads them on the host)."""
-    return sum(int(count) for count, _, _ in _replay_counters.values())
+    return _replays.total()
 
 
 def zero_launch_counts():
     """Set the host count and every device's replay count to 0."""
     network_update_cuda.launches = 0
-    for count, _, _ in _replay_counters.values():
-        count.zero_()
+    _replays.zero()
 
 
 def network_update(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
