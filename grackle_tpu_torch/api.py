@@ -32,12 +32,13 @@ port always gathers.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from . import graph_cache
+from . import graph_cache, tracing
 from .config import PARAMETER_REGISTRY, ChemistryConfig, resolve_config
 from .data.cloudy import (CloudyTable, empty_cloudy_table, is_old_style,
                           load_cloudy_table)
@@ -245,7 +246,13 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
     """
     cfg = ctx.config
     f, imetal = _prep_fields(ctx, fields)
+    # unit scalars and UVB photo rates are per-call host work, as the
+    # reference computes them in C per call; the body reads them from
+    # the block, so a graph replays with a new a_value
+    t0 = time.perf_counter()
     us = make_unit_scalars(cfg, ctx.tables, ctx.units, grid_dx)
+    block = call_scalars(ctx, f["density"].device, us)
+    tracing.call_scalars.add(time.perf_counter() - t0)
     l_h2 = None
     if cfg.H2_self_shielding == 1:
         if l_h2shield is not None:
@@ -260,10 +267,6 @@ def solve_chemistry(ctx: GrackleContext, fields, dt,
             d_grid = f["density"].reshape(grid_shape)
             l_h2 = sobolev_shield_length(
                 d_grid, us.xbase1, us.dx_cgs).reshape(-1)
-    # unit scalars and UVB photo rates are per-call host work, as the
-    # reference computes them in C per call; the body reads them from
-    # the block, so a graph replays with a new a_value
-    block = call_scalars(ctx, f["density"].device, us)
     new_f, diagnostics = solve_cached(ctx, block, f, dt, imetal, l_h2)
     # the stateful call reports its counts as Python ints
     for key in ("subcycles", "trips"):

@@ -275,4 +275,19 @@ int grackle_graph_nodes(void* graph, unsigned long long* count) {
   return (int)err;
 }
 
+// The own node count of the graph that `stream` is capturing into (a
+// conditional node counts as one).  Returns a CUDA error code;
+// cudaErrorIllegalState if the stream is not capturing.
+int grackle_capture_nodes(void* stream, unsigned long long* count) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  unsigned long long id = 0;
+  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &status,
+                                 &id, &graph);
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive || graph == nullptr)
+    return (int)cudaErrorIllegalState;
+  return grackle_graph_nodes(graph, count);
+}
+
 }  // extern "C"

@@ -27,6 +27,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..constants import kboltz, mass_h, tiny
 from .common import div_host, dtype_tiny8
 from .lookup import TableIndex, TableLookup, h2dust_lookup, table_index
@@ -166,20 +167,21 @@ def lookup_cool_rates(
             k31shield = _cells(pr.k31, d)
 
         if cfg.H2_self_shielding > 0:
-            if cfg.H2_self_shielding == 1:
-                # Sobolev-like length from the precomputed density-stencil
-                # field (solve_rate_cool_g.F:1418-1434)
-                l_h2 = l_h2shield_field
-            elif cfg.H2_self_shielding == 2:
-                l_h2 = f["H2_self_shielding_length"] * us.xbase1
-            elif cfg.H2_self_shielding == 3:
-                l_h2 = us.c_ljeans * torch.sqrt(tgas / (d * mmw))
-            else:
-                l_h2 = torch.zeros_like(d)
-            N_H2 = us.dom * f["H2I"] * l_h2
-            ngas = d * us.dom / mmw
-            f_shield = _wg2019_shield(N_H2, tgas, ngas)
-            k31shield = f_shield * k31shield
+            with tracing.shield_block("h2", d):
+                if cfg.H2_self_shielding == 1:
+                    # Sobolev-like length from the precomputed
+                    # density-stencil field (solve_rate_cool_g.F:1418-1434)
+                    l_h2 = l_h2shield_field
+                elif cfg.H2_self_shielding == 2:
+                    l_h2 = f["H2_self_shielding_length"] * us.xbase1
+                elif cfg.H2_self_shielding == 3:
+                    l_h2 = us.c_ljeans * torch.sqrt(tgas / (d * mmw))
+                else:
+                    l_h2 = torch.zeros_like(d)
+                N_H2 = us.dom * f["H2I"] * l_h2
+                ngas = d * us.dom / mmw
+                f_shield = _wg2019_shield(N_H2, tgas, ngas)
+                k31shield = f_shield * k31shield
 
         if cfg.H2_custom_shielding > 0:
             k31shield = f["H2_custom_shielding_factor"] * k31shield
@@ -189,36 +191,39 @@ def lookup_cool_rates(
 
     iradshield = cfg.self_shielding_method
     if iradshield > 0:
-        nH = f["HI"] + f["HII"]
-        if ispecies > 1:
-            nH = nH + f["HM"] + f["H2I"] + f["H2II"]
-            if ispecies > 2:
-                nH = nH + 0.5 * (f["DI"] + f["DII"]) \
-                    + 2.0 * f["HDI"] / 3.0
-        f_shield_H = _rahmati_fshield(
-            pr.crsHI, pr.k24, tgas, nH * us.dom, us.tbase1
-        )
-        nHe = 0.25 * (f["HeI"] + f["HeII"] + f["HeIII"])
-        f_shield_He = _rahmati_fshield(
-            pr.crsHeI, pr.k26, tgas, nHe * us.dom, us.tbase1
-        )
+        with tracing.shield_block("rahmati", d):
+            nH = f["HI"] + f["HII"]
+            if ispecies > 1:
+                nH = nH + f["HM"] + f["H2I"] + f["H2II"]
+                if ispecies > 2:
+                    nH = nH + 0.5 * (f["DI"] + f["DII"]) \
+                        + 2.0 * f["HDI"] / 3.0
+            f_shield_H = _rahmati_fshield(
+                pr.crsHI, pr.k24, tgas, nH * us.dom, us.tbase1
+            )
+            nHe = 0.25 * (f["HeI"] + f["HeII"] + f["HeIII"])
+            f_shield_He = _rahmati_fshield(
+                pr.crsHeI, pr.k26, tgas, nHe * us.dom, us.tbase1
+            )
 
-        def shielded(rate, factor):
-            return torch.where(rate < tiny8, torch.zeros_like(rate),
-                               rate * factor)
+            def shielded(rate, factor):
+                return torch.where(rate < tiny8, torch.zeros_like(rate),
+                                   rate * factor)
 
-        if iradshield >= 1:
-            # shield HI (solve_rate_cool_g.F:1540-1568)
-            shields["k24"] = shielded(shields["k24"], f_shield_H)
-            shields["k29"] = shielded(shields["k29"], f_shield_H)
-        if iradshield >= 2:
-            # + HeI, H2+ rates follow He (solve_rate_cool_g.F:1570-1624)
-            shields["k26"] = shielded(shields["k26"], f_shield_He)
-            shields["k28"] = shielded(shields["k28"], f_shield_He)
-            shields["k30"] = shielded(shields["k30"], f_shield_He)
-        if iradshield == 3:
-            # HeII rate zeroed entirely (solve_rate_cool_g.F:1626-1676)
-            shields["k25"] = torch.zeros_like(d)
+            if iradshield >= 1:
+                # shield HI (solve_rate_cool_g.F:1540-1568)
+                shields["k24"] = shielded(shields["k24"], f_shield_H)
+                shields["k29"] = shielded(shields["k29"], f_shield_H)
+            if iradshield >= 2:
+                # + HeI, H2+ rates follow He
+                # (solve_rate_cool_g.F:1570-1624)
+                shields["k26"] = shielded(shields["k26"], f_shield_He)
+                shields["k28"] = shielded(shields["k28"], f_shield_He)
+                shields["k30"] = shielded(shields["k30"], f_shield_He)
+            if iradshield == 3:
+                # HeII rate zeroed entirely
+                # (solve_rate_cool_g.F:1626-1676)
+                shields["k25"] = torch.zeros_like(d)
 
     # --- density-dependent k13 (solve_rate_cool_g.F:1707-1734) ---
     if ispecies > 1 and cfg.three_body_rate == 0:

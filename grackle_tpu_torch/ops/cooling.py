@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..constants import mh, tiny
 from . import cloudy_cool, cloudy_kernel
 from .common import dtype_tiny8
@@ -316,32 +317,35 @@ def cool1d_multi(
                 + pr.piHeII * HeII * 0.25
             ) / dom
         else:
-            # a zero rate (the UVB before its ramp) makes the unselected
-            # factor inf or nan: the select discards it, as JAX's does
-            nssh_H = _nssh(pr.crsHI, tgas, pr.k24, us.tbase1)
-            fSShHI = torch.where(pr.k24 < tiny8, 1.0,
-                                 _fssh((HI + HII) * dom / nssh_H))
-            nssh_He = _nssh(pr.crsHeI, tgas, pr.k26, us.tbase1)
-            fSShHeI = torch.where(
-                pr.k26 < tiny8, 1.0,
-                _fssh(0.25 * (HeI + HeII + HeIII) * dom / nssh_He))
-            if iradshield == 1:
-                edot = edot + ipiht * (
-                    pr.piHI * HI * fSShHI + pr.piHeI * HeI * 0.25
-                    + pr.piHeII * HeII * 0.25
-                ) / dom
-            elif iradshield == 2:
-                edot = edot + ipiht * (
-                    pr.piHI * HI * fSShHI
-                    + pr.piHeI * HeI * 0.25 * fSShHeI
-                    + pr.piHeII * HeII * 0.25
-                ) / dom
-            elif iradshield == 3:
-                # NOTE (parity): the reference drops the 0.25 mass->number
-                # factor on HeI in this branch (cool1d_multi_g.F:901-904).
-                edot = edot + ipiht * (
-                    pr.piHI * HI * fSShHI + pr.piHeI * HeI * fSShHeI
-                ) / dom
+            with tracing.shield_block("photo_heating", d):
+                # a zero rate (the UVB before its ramp) makes the
+                # unselected factor inf or nan: the select discards it, as
+                # JAX's does
+                nssh_H = _nssh(pr.crsHI, tgas, pr.k24, us.tbase1)
+                fSShHI = torch.where(pr.k24 < tiny8, 1.0,
+                                     _fssh((HI + HII) * dom / nssh_H))
+                nssh_He = _nssh(pr.crsHeI, tgas, pr.k26, us.tbase1)
+                fSShHeI = torch.where(
+                    pr.k26 < tiny8, 1.0,
+                    _fssh(0.25 * (HeI + HeII + HeIII) * dom / nssh_He))
+                if iradshield == 1:
+                    edot = edot + ipiht * (
+                        pr.piHI * HI * fSShHI + pr.piHeI * HeI * 0.25
+                        + pr.piHeII * HeII * 0.25
+                    ) / dom
+                elif iradshield == 2:
+                    edot = edot + ipiht * (
+                        pr.piHI * HI * fSShHI
+                        + pr.piHeI * HeI * 0.25 * fSShHeI
+                        + pr.piHeII * HeII * 0.25
+                    ) / dom
+                elif iradshield == 3:
+                    # NOTE (parity): the reference drops the 0.25
+                    # mass->number factor on HeI in this branch
+                    # (cool1d_multi_g.F:901-904).
+                    edot = edot + ipiht * (
+                        pr.piHI * HI * fSShHI + pr.piHeI * HeI * fSShHeI
+                    ) / dom
 
     # --- tabulated primordial cooling (cool1d_multi_g.F:917-947) ---
     if ispecies == 0:

@@ -74,6 +74,7 @@ def load():
                 vp, ctypes.c_longlong, vp, ctypes.c_longlong,
                 ctypes.c_longlong, u64, ctypes.c_int, vp, vp, vp]
             lib.grackle_graph_nodes.argtypes = [vp, ctypes.POINTER(u64)]
+            lib.grackle_capture_nodes.argtypes = [vp, ctypes.POINTER(u64)]
             lib.grackle_loop_capture_id.argtypes = [vp, ctypes.POINTER(u64)]
             lib.grackle_loop_retain.argtypes = [vp]
             lib.grackle_loop_released.argtypes = [ctypes.POINTER(u64),
@@ -82,6 +83,7 @@ def load():
                        "capture_id", "retain", "released"):
                 getattr(lib, f"grackle_loop_{fn}").restype = ctypes.c_int
             lib.grackle_graph_nodes.restype = ctypes.c_int
+            lib.grackle_capture_nodes.restype = ctypes.c_int
             rt, drv = ctypes.c_int(), ctypes.c_int()
             _check(lib.grackle_loop_versions(ctypes.byref(rt),
                                              ctypes.byref(drv)), "versions")
@@ -165,6 +167,16 @@ def graph_nodes(graph) -> int:
     count = ctypes.c_ulonglong()
     _check(load().grackle_graph_nodes(ctypes.c_void_p(graph),
                                       ctypes.byref(count)), "node count")
+    return count.value
+
+
+def capture_nodes(device) -> int:
+    """The own node count, so far, of the graph the current stream of
+    ``device`` is capturing (tracing.shield_block reads it before and
+    after a block)."""
+    count = ctypes.c_ulonglong()
+    _check(load().grackle_capture_nodes(_stream(device), ctypes.byref(count)),
+           "capture node count (is the stream capturing?)")
     return count.value
 
 

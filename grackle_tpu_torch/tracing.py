@@ -1,0 +1,72 @@
+"""The port's own spans and counters, process-wide, cheap enough to stay
+on in every run (as ``ops/device_loop.body_nodes`` and
+``ops/cloudy_kernel.count_replays`` are).
+
+- :data:`call_scalars`: a host span, the seconds a stateful call
+  (``api.solve_chemistry``) spends on its scalar work: the unit scalars,
+  the UVB photo rates at the call's redshift and the scalar block's copy
+  to the device (``api.call_scalars``).  Two clock reads a call; the
+  latest :data:`RECORD_CALLS` calls are kept.
+- :data:`shield_nodes`: by shielding block, the nodes the block added to
+  the CUDA graph being captured, at its latest capture: the Rahmati et
+  al. 2013 factors and shielded rates (``"rahmati"``) and the H2 factor
+  (``"h2"``) of ``ops/chemistry_step.lookup_cool_rates``, and the
+  shielded photo-heating of ``ops/cooling.cool1d_multi``
+  (``"photo_heating"``).  Each is read from the capturing graph's own
+  node count before and after the block (ops/graph_loop.capture_nodes),
+  so it costs nothing at replay and nothing on an eager call.  A
+  subcycle body runs each block once, so their sum is the shielding's
+  nodes a subcycle (:func:`shield_nodes_per_subcycle`).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import statistics
+
+import torch
+
+from .ops import graph_loop
+
+#: calls a span keeps
+RECORD_CALLS = 4096
+
+
+class Span:
+    """A bounded record of seconds, one entry a call."""
+
+    def __init__(self, size: int = RECORD_CALLS):
+        self.record = collections.deque(maxlen=size)
+
+    def add(self, seconds: float):
+        self.record.append(seconds)
+
+    def median(self):
+        """The median of the record (so a few outliers, such as a key's
+        eager and capturing calls, do not weigh); None when empty."""
+        return statistics.median(self.record) if self.record else None
+
+
+call_scalars = Span()
+shield_nodes: dict = {}
+
+
+@contextlib.contextmanager
+def shield_block(name: str, ref: torch.Tensor):
+    """Count the nodes that the work inside adds to the graph the current
+    stream of ``ref``'s device is capturing, into ``shield_nodes[name]``;
+    nothing where that stream is not capturing."""
+    if ref.device.type != "cuda" or \
+            not torch.cuda.is_current_stream_capturing():
+        yield
+        return
+    before = graph_loop.capture_nodes(ref.device)
+    yield
+    shield_nodes[name] = graph_loop.capture_nodes(ref.device) - before
+
+
+def shield_nodes_per_subcycle():
+    """The shielding's nodes in one captured subcycle body (the sum over
+    its blocks at their latest capture); None before any capture."""
+    return sum(shield_nodes.values()) if shield_nodes else None
