@@ -18,8 +18,9 @@ body.  Phases:
 
 0. device: the card's name and power limit (nvidia-smi), torch and its
    CUDA, nvcc and the driver;
-1. build: nvcc of csrc/network_update.cu, csrc/graph_loop.cu and
-   csrc/cloudy_interp.cu, started together, with their build seconds;
+1. build: nvcc of csrc/network_update.cu, csrc/graph_loop.cu,
+   csrc/cloudy_interp.cu and csrc/dust_temp.cu, started together, with
+   their build seconds;
 2. kernel vs twin: the network-region inputs of the flagship state at the
    first and at a later subcycle, f64 and f32, at every cell and at the
    compacted path's tile and batch widths, then at the batch width plus
@@ -50,6 +51,16 @@ body.  Phases:
    twin's gradient; tabulated stateful calls replayed at changing
    a_values (across the table's redshift edges), each bit-identical to
    the uncached body, with 3 Cloudy launches run a subcycle;
+2d. the dust temperature kernel (csrc/dust_temp.cu) against its twin,
+   bit for bit, f64 and f32: on the dust inputs of the first subcycle
+   (a cold start) and of subcycle 24 (warm) of the first state of the
+   benchmark cell chem3_dust.grid1m's pool, at 4,096, 81,920 and
+   1,048,576 cells, and without the warm start; a call whose input
+   requires grad (one launch, the twin's gradient); the flagship's
+   stateful calls at 4,096 cells, one dust launch a subcycle body and a
+   subcycle run, 1 to 3 dust nodes in the captured body, replays at
+   changing a_values bit-identical to the uncached body; the kernel's
+   device time beside its bound and the captured twin's replay time;
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
@@ -175,10 +186,11 @@ into a graph counted on the card at every replay by a node beside it
 (ops/network_kernel.count_replays), a host program of 4i or 4k counting
 its own through GRACKLE_TPU_TORCH_LAUNCH_LOG; the loop kernel's are 4m's
 and 4n's replays' launches, which it counts on the device; the Cloudy
-kernels' are counted in the same runs as the network kernel's and in the
-same way, ops/cloudy_kernel.count_replays, but for the host programs of
-4i and 4k, which report only the network kernel's, and exclude phase
-2c's direct calls), and the last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
+and the dust kernels' are counted in the same runs as the network
+kernel's and in the same way, ops/kernel_lib.Library.count_replays, but
+for the host programs of 4i and 4k, which report only the network
+kernel's, and exclude phases 2c's and 2d's direct calls), and the last
+line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
 jax nor grackle_tpu.
@@ -242,6 +254,16 @@ CLOUDY_WIDTHS = (1, 4096, 262_144)
 CLOUDY_SLICE = (3, 12)
 N_CLOUDY_STATE = 4096
 CLOUDY_A_VALUES = (1.0, 1.0, 1 / 3.3, 1.25, 1 / 10.5, 1 / 13.0)
+#: phase 2d: the dust kernel's widths, the subcycles whose dust inputs it
+#: replays (the first, a cold start, and a later, warm one), the
+#: benchmark cell whose state pool it draws them from and the pool's seed
+DUST_WIDTHS = (4096, 81_920, N_FLAGSHIP)
+DUST_AT = (0, 24)
+DUST_CELL = "chem3_dust.grid1m"
+DUST_SEED = 2**31 + 101
+#: phase 2d: the a_values of its stateful replays (the CMB temperature
+#: the kernel reads from the call's scalar block changes with them)
+DUST_A_VALUES = (1.0, 1.0, 0.5, 0.25)
 #: phase 4c: the dt of tests/test_exact_cooling.py's exact-vs-subcycled
 #: check, where the subcycled solve takes a handful of accurate steps, and
 #: its bounds on the relative energy difference (test_exact_cooling.py:
@@ -952,14 +974,17 @@ def device_fields(fields, device="cuda"):
 
 
 def zero_launches():
-    """Set the network and the Cloudy kernels' launch counts to 0: the
-    wrappers' host launches and, counted on the card, those of graph
-    replays (armed here for the graphs captured from now on)."""
-    from grackle_tpu_torch.ops import cloudy_kernel, network_kernel
+    """Set the network, the Cloudy and the dust kernels' launch counts to
+    0: the wrappers' host launches and, counted on the card, those of
+    graph replays (armed here for the graphs captured from now on)."""
+    from grackle_tpu_torch.ops import cloudy_kernel, dust_kernel
+    from grackle_tpu_torch.ops import network_kernel
 
-    for mod in (network_kernel, cloudy_kernel):
-        mod.count_replays("cuda")
-        mod.zero_launch_counts()
+    network_kernel.count_replays("cuda")
+    network_kernel.zero_launch_counts()
+    for lib in (cloudy_kernel.library, dust_kernel.library):
+        lib.count_replays("cuda")
+        lib.zero()
 
 
 def launches_run():
@@ -975,9 +1000,30 @@ def cloudy_launches_run():
     """The Cloudy kernels' launches since zero_launches() that ran on the
     card: the eager ones and the graph replays' (counted on the card,
     read here)."""
-    from grackle_tpu_torch.ops.cloudy_kernel import executed_launches
+    from grackle_tpu_torch.ops import cloudy_kernel
 
-    return executed_launches()
+    return cloudy_kernel.library.executed()
+
+
+def dust_launches_run():
+    """The dust kernel's launches since zero_launches() that ran on the
+    card, counted as cloudy_launches_run counts the Cloudy kernels'."""
+    from grackle_tpu_torch.ops import dust_kernel
+
+    return dust_kernel.library.executed()
+
+
+def check_dust_launches(where, cfg, ran, subcycles):
+    """Raise unless a solve of ``subcycles`` subcycles under ``cfg`` ran
+    one dust launch a subcycle where its cooling solves a dust
+    temperature, and none where it does not."""
+    from grackle_tpu_torch.config import _anydust
+
+    subcycles = int(subcycles)
+    want = subcycles if _anydust(cfg) else 0
+    if ran != want:
+        raise AssertionError(f"{where}: {ran} dust launches ran for "
+                             f"{subcycles} subcycles (want {want})")
 
 
 @contextlib.contextmanager
@@ -1260,6 +1306,16 @@ print(f"NCCL_OK world {size} rank {rank} backend {backend} mesh "
 def capture_network_inputs(cd, fields, dt, at):
     """Run the solve's subcycles (through the kernel) and keep the
     network region's inputs at each subcycle index in ``at``."""
+    captured = []
+    eager_subcycles(cd, fields, dt, max(at) + 1, inputs_at=at,
+                    captured=captured)
+    return captured
+
+
+def eager_subcycles(cd, fields, dt, steps, inputs_at=(), captured=None):
+    """Run the first ``steps`` subcycles of the monolithic solve of
+    ``fields`` eagerly; append (step, the network region's inputs) to
+    ``captured`` at each step in ``inputs_at``."""
     from grackle_tpu_torch.api import _prep_fields
     from grackle_tpu_torch.ops import solver
 
@@ -1284,16 +1340,77 @@ def capture_network_inputs(cd, fields, dt, at):
     f, itmask0 = solver.prepare_fields(cfg, f, us, imetal, False)
     f_state, f_const = solver.split_state(cfg, f)
     carry = solver.init_carry(f_state, itmask0, cfg)
-    captured = []
-    for step in range(max(at) + 1):
-        inputs = {} if step in at else None
+    for step in range(steps):
+        inputs = {} if step in inputs_at else None
         carry = solver.subcycle(
             cfg, ctx.tables, ctx.cloudy_primordial, ctx.cloudy_metal, pr,
             us, carry, dt, imetal, ctx.cloudy_data_new, f_const,
             inputs_out=inputs)
         if inputs is not None:
             captured.append((step, inputs))
-    return captured
+
+
+def dust_cell_chem(precision, device="cuda"):
+    """The context of the benchmark cell DUST_CELL
+    (portbench/configs/chem3_dust.json, its synthetic tables) at
+    ``precision``, and the first state of the cell's pool drawn with
+    DUST_SEED (numpy arrays)."""
+    from portbench.harness import run_cell, spec
+
+    cell = spec.cell(DUST_CELL)
+    program = run_cell.Program(cell, run_cell.make_groups(cell), device,
+                               {"precision": precision})
+    return program.cd, run_cell.make_pool(cell, cell.traffic, DUST_SEED)[0]
+
+
+def capture_dust_inputs(cd, fields, dt, at=DUST_AT):
+    """Run the monolithic solve's first subcycles and keep the dust
+    temperature's arguments (ops/cooling.cool1d_multi's call, once a
+    subcycle) at each subcycle index in ``at``: [(step, positional
+    arguments, tdust_init)], the tensors cloned."""
+    import torch
+
+    from grackle_tpu_torch.ops import dust_kernel
+
+    calls = []
+    route = dust_kernel.dust_temperature
+
+    def record(*args, tdust_init=None):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in (*args, tdust_init)))
+        return route(*args, tdust_init=tdust_init)
+
+    dust_kernel.dust_temperature = record
+    try:
+        eager_subcycles(cd, fields, dt, max(at) + 1)
+    finally:
+        dust_kernel.dust_temperature = route
+    if len(calls) != max(at) + 1:
+        raise AssertionError(f"{len(calls)} dust calls in {max(at) + 1} "
+                             f"subcycles")
+    return [(step, calls[step][:-1], calls[step][-1]) for step in at]
+
+
+def dust_steps(args, init):
+    """(most Newton steps, most bisection steps) that the twin's masked
+    sweeps take on the dust call (``args``, ``init``): its loops' own
+    step counts, from ops/device_loop.device_while."""
+    from grackle_tpu_torch.ops import dust_temp
+
+    counts = []
+    loop = dust_temp.device_while
+
+    def counted(*a, **kw):
+        out = loop(*a, **kw)
+        counts.append(out[1])
+        return out
+
+    dust_temp.device_while = counted
+    try:
+        dust_temp.calc_tdust_1d(*args, tdust_init=init)
+    finally:
+        dust_temp.device_while = loop
+    return tuple(counts)
 
 
 def cloudy_tables(cd):
@@ -1426,9 +1543,9 @@ def cloudy_launches_per_body(cd, fields, dt, calls=1):
     subcycle, interpolate_3dz = solver.subcycle, interp.interpolate_3dz
 
     def counted(*args, **kw):
-        before = sum(cloudy_kernel.launches.values())
+        before = cloudy_kernel.library.issued()
         out = subcycle(*args, **kw)
-        per_body.append(sum(cloudy_kernel.launches.values()) - before)
+        per_body.append(cloudy_kernel.library.issued() - before)
         return out
 
     def watched(x1, *args, **kw):
@@ -1616,6 +1733,15 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
+        self.dust = dict(
+            name="dust_temp", route="cuda",
+            source="grackle_tpu_torch/csrc/dust_temp.cu",
+            # no TPU kernel: the dust solve is two lax while loops of
+            # masked sweeps in the JAX package
+            replaces="grackle_tpu/ops/dust_temp.py:calc_tdust_1d",
+            launches=None, max_abs_err=None, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None,
+        )
         #: kernel launches of each main-path run, counted from 0 just
         #: before it: the kernel line's launches are their sum
         self.path_launches = {}
@@ -1623,6 +1749,9 @@ class Smoke:
         #: programs of 4i and 4k aside, which count only the network
         #: kernel's): the cloudy_interp line's launches are their sum
         self.cloudy_path_launches = {}
+        #: the dust kernel's launches of the same runs, likewise: the
+        #: dust_temp line's launches are their sum
+        self.dust_path_launches = {}
         #: nvidia-smi's name and power limit of the card (phase 0)
         self.card = "not read"
 
@@ -1656,9 +1785,9 @@ class Smoke:
             except OSError as exc:
                 return f"({exc})"
 
-        from grackle_tpu_torch.ops.network_kernel import _nvcc
+        from grackle_tpu_torch.ops.kernel_lib import nvcc as nvcc_path
 
-        nvcc = run([_nvcc(), "--version"]).splitlines()
+        nvcc = run([nvcc_path(), "--version"]).splitlines()
         driver = run(["nvidia-smi", "--query-gpu=driver_version",
                       "--format=csv,noheader"])
         return (f"nvidia-smi: {out[0]}; torch {torch.__version__} (CUDA "
@@ -1669,15 +1798,16 @@ class Smoke:
         """The kernels' libraries, one nvcc each, started together."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from grackle_tpu_torch.ops import (cloudy_kernel, graph_loop,
-                                           network_kernel)
+        from grackle_tpu_torch.ops import (cloudy_kernel, dust_kernel,
+                                           graph_loop, network_kernel)
 
         def timed(mod):
             t0 = time.time()
             path = mod.build()
             return path, time.time() - t0
 
-        mods = (network_kernel, graph_loop, cloudy_kernel)
+        mods = (network_kernel, graph_loop, cloudy_kernel.library,
+                dust_kernel.library)
         t0 = time.time()
         with ThreadPoolExecutor(len(mods)) as pool:
             builds = list(pool.map(timed, mods))
@@ -1687,11 +1817,13 @@ class Smoke:
         built = ", ".join(f"{os.path.relpath(path, REPO)} in {secs:.2f} s"
                           for path, secs in builds)
         rt, drv = graph_loop.versions
+        logs = "; ".join(
+            f"{name} ptxas: {' '.join(mod.build_log.split()) or '(cached)'}"
+            for name, mod in (("network", network_kernel),
+                              ("Cloudy", cloudy_kernel.library),
+                              ("dust", dust_kernel.library)))
         return (f"built {built}, {wall:.2f} s together; the loop library's "
-                f"CUDA runtime {rt}, driver {drv}; network ptxas: "
-                f"{' '.join(network_kernel.build_log.split()) or '(cached)'}"
-                f"; Cloudy ptxas: "
-                f"{' '.join(cloudy_kernel.build_log.split()) or '(cached)'}")
+                f"CUDA runtime {rt}, driver {drv}; {logs}")
 
     def check_kernel(self, label, cfg, inp):
         """Kernel vs twin on one set of captured network inputs (the
@@ -1927,10 +2059,10 @@ class Smoke:
             runs = []
             for fn in (route, twin):
                 x = args[wrt].clone().requires_grad_(True)
-                before = sum(cloudy_kernel.launches.values())
+                before = cloudy_kernel.library.issued()
                 out = fn(*args[:wrt], x, *args[wrt + 1:])
                 out = out if isinstance(out, tuple) else (out,)
-                launched = sum(cloudy_kernel.launches.values()) - before
+                launched = cloudy_kernel.library.issued() - before
                 sum(o.sum() for o in out).backward()
                 runs.append((launched, tuple(o.detach() for o in out),
                              x.grad))
@@ -2000,6 +2132,174 @@ class Smoke:
                      f"uncached body and 3 Cloudy launches run a subcycle")
         return "; ".join(parts)
 
+    def dust_kernel_vs_twin(self):
+        """The dust temperature kernel (csrc/dust_temp.cu) against its twin
+        on the card, bit for bit, f64 and f32: on the dust inputs of the
+        first subcycle (a cold start from zeros) and of a later one (warm)
+        of DUST_CELL's first pool state, at DUST_WIDTHS cells; then the
+        same inputs without a warm start (as the derived field passes
+        them).  Then a call whose
+        input requires grad: one launch, the kernel's values, the twin's
+        gradient bit for bit.  Then the flagship's stateful calls at
+        4,096 cells: one dust launch in each subcycle body, eager and
+        capturing, the captured body's dust nodes
+        (tracing.dust_nodes_per_subcycle) at most 3, and replays at the
+        DUST_A_VALUES bit-identical to the uncached body, with one dust
+        launch run a subcycle (replays counted on the card).  The kernel's
+        median device time (f64, later subcycle) beside its bound, and at
+        the largest width the twin's, captured into a graph and
+        replayed.  Its launches are left out of the kernel line's
+        count, which is the main-path runs'."""
+        import torch
+
+        from grackle_tpu_torch import tracing
+        from grackle_tpu_torch.ops import device_loop, dust_kernel, dust_temp
+
+        parts, failed = [], []
+        checks = 0
+        worst = 0.0
+        for precision in (64, 32):
+            cd, state = dust_cell_chem(precision)
+            captured = capture_dust_inputs(cd, state, DT_FLAGSHIP)
+            for step, args, init in captured:
+                newton, bisect = dust_steps(args, init)
+                parts.append(f"f{precision} subcycle {step}: the twin's "
+                             f"sweeps run {newton} Newton and {bisect} "
+                             f"bisection steps")
+                for n in DUST_WIDTHS:
+                    head = [a[:n] if isinstance(a, torch.Tensor)
+                            and a.dim() else a for a in args]
+                    runs = [("warm", init[:n])]
+                    if n == max(DUST_WIDTHS):
+                        runs.append(("cold", None))
+                    for what, start in runs:
+                        got = dust_kernel.dust_temperature_cuda(
+                            *head, tdust_init=start)
+                        want = dust_temp.calc_tdust_1d(*head,
+                                                       tdust_init=start)
+                        bad, diff = cloudy_bit_differences((got,), (want,))
+                        checks += 1
+                        worst = max(worst, diff)
+                        if bad:
+                            failed.append(f"f{precision} subcycle {step} "
+                                          f"{n} {what}: {bad} differ, max "
+                                          f"abs {diff:.3e}")
+            if precision == 64:
+                step, args, init = captured[-1]
+                for n in (81_920, max(DUST_WIDTHS)):
+                    head = [a[:n] if isinstance(a, torch.Tensor)
+                            and a.dim() else a for a in args]
+                    ms = cuda_median_ms(lambda: dust_kernel
+                                        .dust_temperature_cuda(
+                                            *head, tdust_init=init[:n]))
+                    bound = 6 * 8 * n / HBM_BYTES_PER_S * 1e3
+                    parts.append(f"kernel at {n} cells (subcycle {step}) "
+                                 f"{ms:.4f} ms, bound {bound:.5f} ms")
+                    if n == max(DUST_WIDTHS):
+                        # the twin as a subcycle body replays it
+                        graph, _, _ = capture_graph(
+                            lambda: dust_temp.calc_tdust_1d(
+                                *head, tdust_init=init[:n]))
+                        plain_ms = cuda_median_ms(graph.replay)
+                        del graph
+                        device_loop.release_pools()
+                        parts.append(f"the twin captured, replayed at {n} "
+                                     f"cells {plain_ms:.4f} ms")
+                        self.dust.update(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound, bound_by="bytes")
+                grad_args = (args, init)
+            del cd, state, captured
+            torch.cuda.empty_cache()
+        self.dust["max_abs_err"] = worst
+        if failed:
+            raise AssertionError(f"{len(failed)} of {checks} checks differ "
+                                 f"from the twin: " + "; ".join(failed[:8]))
+        parts.insert(0, f"{checks} kernel-vs-twin checks bit-identical")
+
+        # a call whose input requires grad launches the kernel too, and
+        # its backward gives the twin's gradient
+        args, init = grad_args
+        n = 4096
+        head = [a[:n] if isinstance(a, torch.Tensor) and a.dim() else a
+                for a in args]
+        runs = []
+        for fn in (dust_kernel.dust_temperature, dust_temp.calc_tdust_1d):
+            x = head[0].clone().requires_grad_(True)
+            before = dust_kernel.library.issued()
+            out = fn(x, *head[1:], tdust_init=init[:n])
+            launched = dust_kernel.library.issued() - before
+            out.sum().backward()
+            runs.append((launched, out.detach(), x.grad))
+        (launched, values, grad), (_, _, twin_grad) = runs
+        with torch.no_grad():
+            kernel = dust_kernel.dust_temperature(*head, tdust_init=init[:n])
+        bad = cloudy_bit_differences((values,), (kernel,))[0]
+        off = cloudy_bit_differences((grad,), (twin_grad,))[0]
+        finite = bool(torch.isfinite(grad).all())
+        if launched != 1 or bad or off or not finite:
+            raise AssertionError(
+                f"a dust call that requires grad: {launched} launches, "
+                f"{bad} values off the kernel's, gradient finite {finite}, "
+                f"{off} elements off the twin's")
+        parts.append("a call whose input requires grad: one launch, the "
+                     "kernel's values, a finite gradient bit-identical to "
+                     "the twin's")
+
+        # the flagship's stateful calls: launches a subcycle body (eager
+        # and capturing), the captured body's dust nodes, and replays at
+        # changing a_values (the CMB temperature is read on the card)
+        from grackle_tpu_torch.ops import solver
+
+        cd = flagship_chem(64, "cuda")
+        fields = device_fields(flagship_fields(cd, N_CLOUDY_STATE))
+        graphs = cd.context.graphs
+        dust_kernel.library.count_replays(CARD_DEVICE)
+        tracing.dust_nodes = None
+        kinds, nodes = [], None
+        subcycle = solver.subcycle
+        for a_value in DUST_A_VALUES:
+            cd.a_value = a_value
+            per_body = []
+
+            def counted(*a, **kw):
+                before = dust_kernel.library.issued()
+                out = subcycle(*a, **kw)
+                per_body.append(dust_kernel.library.issued() - before)
+                return out
+
+            dust_kernel.library.zero()
+            solver.subcycle = counted
+            try:
+                kind, got, _ = stateful_call(graphs, cd.solve_chemistry,
+                                             dict(fields), 1.0e-4)
+            finally:
+                solver.subcycle = subcycle
+            subcycles = int(got[1]["subcycles"])
+            ran = dust_kernel.library.executed()
+            if (per_body and set(per_body) != {1}) or ran != subcycles:
+                raise AssertionError(
+                    f"a_value {a_value}, {dict(kind)}: dust launches a "
+                    f"subcycle body {sorted(set(per_body))}, {ran} run "
+                    f"for {subcycles} subcycles")
+            if "capture" in kind:
+                nodes = tracing.dust_nodes_per_subcycle()
+            with uncached():
+                want = cd.solve_chemistry(dict(fields), 1.0e-4)
+            differ = tree_differences(got, want)
+            if differ:
+                raise AssertionError(f"a_value {a_value}: {differ} differ "
+                                     f"from the uncached body")
+            kinds.append("/".join(sorted(kind)))
+        if nodes is None or not 1 <= nodes <= 3:
+            raise AssertionError(f"dust nodes in the captured subcycle "
+                                 f"body: {nodes} (want 1 to 3)")
+        parts.append(f"flagship calls at a_value {DUST_A_VALUES}: "
+                     f"{', '.join(kinds)}, one dust launch a subcycle body "
+                     f"and a subcycle run, {nodes} dust node(s) in the "
+                     f"captured body, each bit-identical to the uncached "
+                     f"body")
+        return "; ".join(parts)
+
     def answers(self):
         """The stored answers; then the functional_jit example and the
         old-style rank-4 cooling time, each against the port's CPU run
@@ -2067,6 +2367,7 @@ class Smoke:
                 cd.context.graphs, cd.solve_chemistry, fields, DT_FLAGSHIP)
             launches = launches_run()
             cloudy = cloudy_launches_run()
+            dust = dust_launches_run()
             if kinds != {kind: 1}:
                 raise AssertionError(f"f{precision}: call {len(walls) + 1} "
                                      f"was {dict(kinds)}, not {kind}")
@@ -2074,6 +2375,8 @@ class Smoke:
                 raise AssertionError(
                     f"f{precision} {kind}: {launches} kernel launches for "
                     f"{diag['subcycles']} subcycles")
+            check_dust_launches(f"f{precision} {kind}", cd.config, dust,
+                                diag["subcycles"])
             if first is None:
                 first = (new_f, diag)
             elif tree_differences((new_f, diag), first):
@@ -2096,6 +2399,7 @@ class Smoke:
         if precision == 64:
             self.path_launches["compacted"] = launches
             self.cloudy_path_launches["compacted"] = cloudy
+            self.dust_path_launches["compacted"] = dust
             self.compact64 = (new_f, diag, wall)
             self.compact64_eager = eager_s
             self.flagship64 = cd
@@ -2248,7 +2552,7 @@ class Smoke:
         from grackle_tpu_torch import chemistry_data, setup_fluid_container
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
         from grackle_tpu_torch.ops import device_loop, graph_loop
-        from grackle_tpu_torch.ops import cloudy_kernel
+        from grackle_tpu_torch.ops import cloudy_kernel, dust_kernel
         from grackle_tpu_torch.ops.network_kernel import replayed_launches
         from grackle_tpu_torch.utilities.physical_constants import (
             cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
@@ -2506,7 +2810,12 @@ class Smoke:
                                  f"kernel launches")
         self.path_launches["captured_replays"] = replayed
         self.cloudy_path_launches["captured_replays"] = \
-            cloudy_kernel.replayed_launches()
+            cloudy_kernel.library.replayed()
+        dust = dust_kernel.library.replayed()
+        if not 0 < dust <= replay_subcycles:
+            raise AssertionError(f"the replays ran {dust} dust launches in "
+                                 f"{replay_subcycles} subcycles")
+        self.dust_path_launches["captured_replays"] = dust
         self.loop["launches"] = loop_launches
         parts.append(f"replays: {replayed} network kernel launches and "
                      f"{loop_launches} loop kernel launches (both counted "
@@ -2554,7 +2863,7 @@ class Smoke:
         def gib(b):
             return "not measured" if b is None else f"{b / 2**30:.3f} GiB"
 
-        parts, launch_total, cloudy_total = [], [0], [0]
+        parts, launch_total, cloudy_total, dust_total = [], [0], [0], [0]
 
         def report(label, walls, first_capture, extra=""):
             kinds = []
@@ -2592,6 +2901,8 @@ class Smoke:
             kinds, got, wall = stateful_call(graphs, call, *args)
             launches = launches_run()
             cloudy_total[0] += cloudy_launches_run()
+            dust = dust_launches_run()
+            dust_total[0] += dust
             where = f"{label}, {kind} call"
             if set(kinds) != {kind}:
                 raise AssertionError(f"{where}: the cache made {dict(kinds)}")
@@ -2610,6 +2921,10 @@ class Smoke:
             if solve and launches != solve_launches(got):
                 raise AssertionError(f"{where}: {launches} launches for "
                                      f"{solve_launches(got)} subcycles")
+            # a solve with dust runs one dust launch a subcycle
+            if solve and dust not in (0, launches):
+                raise AssertionError(f"{where}: {dust} dust launches for "
+                                     f"{launches} subcycles")
             launch_total[0] += launches
             return got, wall
 
@@ -2711,6 +3026,11 @@ class Smoke:
                                 f"{solve_launches(got)} subcycles")
                         launch_total[0] += launches_run()
                         cloudy_total[0] += cloudy_launches_run()
+                        dust = dust_launches_run()
+                        check_dust_launches(f"{label}, a_value {a_value}",
+                                            cd.config, dust,
+                                            solve_launches(got))
+                        dust_total[0] += dust
                         for key, val in got[0].items():
                             if not bool(torch.isfinite(val).all()):
                                 raise AssertionError(
@@ -2871,6 +3191,7 @@ class Smoke:
         print(f"[4n pools] {parts[-1]}", flush=True)
         self.path_launches["stateful_replays"] = launch_total[0]
         self.cloudy_path_launches["stateful_replays"] = cloudy_total[0]
+        self.dust_path_launches["stateful_replays"] = dust_total[0]
         loop = int(launches_dev)
         self.loop["launches"] = (self.loop["launches"] or 0) + loop
         parts.append(f"stateful calls: {launch_total[0]} network kernel "
@@ -3336,8 +3657,11 @@ class Smoke:
         if differ:
             raise AssertionError(f"make_solve_fn vs compacted differ in "
                                  f"{differ}")
+        check_dust_launches("functional", cd.config, dust_launches_run(),
+                            diag["subcycles"])
         self.path_launches["functional"] = launches
         self.cloudy_path_launches["functional"] = cloudy_launches_run()
+        self.dust_path_launches["functional"] = dust_launches_run()
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
                 f"{diag['trips']} trips) against phase 4's stateful "
@@ -3386,8 +3710,11 @@ class Smoke:
                f"CPU max rel {worst:.2e}")
         if worst > ANSWER_RTOL:
             raise AssertionError(msg)
+        check_dust_launches("old-style", cd.config, dust_launches_run(),
+                            diag["subcycles"])
         self.path_launches["old_style"] = launches
         self.cloudy_path_launches["old_style"] = cloudy_launches_run()
+        self.dust_path_launches["old_style"] = dust_launches_run()
         self.old5 = (new_f, diag)
         return msg
 
@@ -3424,8 +3751,11 @@ class Smoke:
             raise AssertionError(f"restored vs phase 4: {launches} launches "
                                  f"(phase 4 {comp_d['subcycles']}), differ "
                                  f"in {differ}")
+        check_dust_launches("restored", cd.config, dust_launches_run(),
+                            diag["subcycles"])
         self.path_launches["serialization"] = launches
         self.cloudy_path_launches["serialization"] = cloudy_launches_run()
+        self.dust_path_launches["serialization"] = dust_launches_run()
         return (f"f64 flagship restored from {len(json.dumps(state))} bytes "
                 f"of JSON: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s, "
                 f"no warm-up; phase 4 {comp_wall:.3f} s), {launches} "
@@ -3470,8 +3800,11 @@ class Smoke:
                 f"sharded: {launches} launches for subcycles "
                 f"{diag['subcycles']}, trips {diag['trips']}, differ from "
                 f"phase 4b in {differ}")
+        check_dust_launches("sharded", cd.config, dust_launches_run(),
+                            sum(diag["subcycles"]))
         self.path_launches["sharded"] = launches
         self.cloudy_path_launches["sharded"] = cloudy_launches_run()
+        self.dust_path_launches["sharded"] = dust_launches_run()
         msg = (f"f64 flagship on {N_SHARDS} shards of {width} cells "
                f"({mesh[0]}): {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s,"
                f" no warm-up), per-shard n_iterations "
@@ -3537,7 +3870,7 @@ class Smoke:
             kinds.update(cd.context.graphs.calls - before)
             return out
 
-        parts, failed, total, cloudy = [], [], 0, 0
+        parts, failed, total, cloudy, dust = [], [], 0, 0, 0
         api.ChemistryData.solve_chemistry = counted
         try:
             for tag, steps, run in runs:
@@ -3553,6 +3886,7 @@ class Smoke:
                 launches = launches_run()
                 total += launches
                 cloudy += cloudy_launches_run()
+                dust += dust_launches_run()
                 worst = max(answer_errors(f"examples/{tag}", out,
                                           steps).values())
                 span = "in full" if steps is None else \
@@ -3572,6 +3906,7 @@ class Smoke:
                                  + "; ".join(parts))
         self.path_launches["examples"] = total
         self.cloudy_path_launches["examples"] = cloudy
+        self.dust_path_launches["examples"] = dust
         return "; ".join(parts)
 
     def c_abi(self):
@@ -3676,6 +4011,7 @@ class Smoke:
             self.flagship_from_file(path)
         self.cloudy_path_launches["flagship_from_file"] = \
             cloudy_launches_run()
+        self.dust_path_launches["flagship_from_file"] = dust_launches_run()
         parts.append(msg)
 
         before = os.environ.get("GRACKLE_DATA_FILE")
@@ -3704,6 +4040,7 @@ class Smoke:
             raise AssertionError("; ".join(parts))
         self.path_launches["example_from_file"] = launches
         self.cloudy_path_launches["example_from_file"] = cloudy_launches_run()
+        self.dust_path_launches["example_from_file"] = dust_launches_run()
         return "; ".join(parts)
 
     @staticmethod
@@ -3727,6 +4064,8 @@ class Smoke:
             raise AssertionError(f"{what}: {launches} launches for "
                                  f"{diag['subcycles']} subcycles, differs "
                                  f"in {differ}")
+        check_dust_launches(what, cd.config, dust_launches_run(),
+                            diag["subcycles"])
         return wall, launches, len(new_f)
 
     def flagship_from_file(self, path):
@@ -3886,6 +4225,8 @@ class Smoke:
                 self.flagship_from_file(paths["synthetic.h5"])
             self.cloudy_path_launches["flagship_from_written_file"] = \
                 cloudy_launches_run()
+            self.dust_path_launches["flagship_from_written_file"] = \
+                dust_launches_run()
             parts.append(msg)
 
             cd = old_style_chem("cuda", 5, paths["old_style_rank5.h5"])
@@ -3895,6 +4236,8 @@ class Smoke:
             self.path_launches["old_style_from_written_file"] = launches
             self.cloudy_path_launches["old_style_from_written_file"] = \
                 cloudy_launches_run()
+            self.dust_path_launches["old_style_from_written_file"] = \
+                dust_launches_run()
             parts.append(f"f64 old-style rank 5, chemistry 1 from "
                          f"old_style_rank5.h5, {N_FLAGSHIP} cells: "
                          f"{wall:.3f} s, {launches} launches, {n_fields} "
@@ -3951,6 +4294,7 @@ def main() -> int:
     smoke.phase("2b kernel vs twin, every configuration",
                 smoke.kernel_configs)
     smoke.phase("2c Cloudy kernels vs twins", smoke.cloudy_kernels)
+    smoke.phase("2d dust kernel vs twin", smoke.dust_kernel_vs_twin)
     smoke.phase("3 stored answers", smoke.answers)
     smoke.phase("4 flagship f64", lambda: smoke.flagship(64))
     smoke.phase("4 flagship f32", lambda: smoke.flagship(32))
@@ -3973,9 +4317,12 @@ def main() -> int:
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     smoke.kernel["launches"] = sum(smoke.path_launches.values())
     smoke.cloudy["launches"] = sum(smoke.cloudy_path_launches.values())
+    smoke.dust["launches"] = sum(smoke.dust_path_launches.values())
     print(f"[launches] {smoke.path_launches}", flush=True)
     print(f"[Cloudy launches] {smoke.cloudy_path_launches}", flush=True)
-    print(json.dumps({"kernels": [smoke.kernel, smoke.loop, smoke.cloudy]}),
+    print(f"[dust launches] {smoke.dust_path_launches}", flush=True)
+    print(json.dumps({"kernels": [smoke.kernel, smoke.loop, smoke.cloudy,
+                                  smoke.dust]}),
           flush=True)
     if not smoke.ok or only is not None:
         return 1

@@ -11,48 +11,39 @@ There is no fallback from the card to the twins.  Only new-style tables
 ``cloudy_cooling_old_tables``.
 
 The library is built at first use with ``nvcc`` for sm_90a from the
-source in this package, into ``grackle_tpu_torch/_build/`` (the network
-kernel's build, ops/network_kernel.py, with NVCC_FLAGS), loaded with
+source in this package, into ``grackle_tpu_torch/_build/``, loaded with
 ctypes and launched on PyTorch's current stream, so a CUDA-graph capture
-records it.  The kernels read the call's unit scalars (``dom``, ``zr``,
-``utem``, ``comp2``) through pointers into its scalar block, so a graph
-replays with a new ``a_value``.  Each launch is an autograd function
+records it (ops/kernel_lib.Library, with its POW_FLAGS).  The kernels
+read the call's unit scalars (``dom``, ``zr``, ``utem``, ``comp2``)
+through pointers into its scalar block, so a graph replays with a new
+``a_value``.  Each launch is an autograd function
 whose backward recomputes the twin and returns its vector-Jacobian
 product, so a differentiable call runs the kernel forward too.
 
-``launches`` counts the launches issued on the host, eager or recorded
-into a capture, per entry (``"fixed_point"``, ``"cooling"``);
-``recorded`` those of them recorded into a capture.  Where
-:func:`count_replays` armed the device before a capture, the graph counts
-its launches on the device at every replay, as the network kernel's do
-(ops/network_kernel.count_replays): :func:`executed_launches` is then the
-launches that ran on the card.
+``library`` counts the launches per entry (``"fixed_point"``,
+``"cooling"``): those issued on the host, and where its
+``count_replays`` armed the device before a capture, those that graphs
+replayed, counted on the card (ops/kernel_lib.Library).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
+import functools
 import math
 import os
-import threading
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import cloudy_cool as _plain_cool
-from . import network_kernel
 from . import tabulated_temp as _plain_temp
-from .network_kernel import _PKG_DIR, ReplayCounter, compile_library
+from .kernel_lib import (PKG_DIR, POW_FLAGS, Library, runs_kernel,
+                         save_twin_args, twin_vjp)
 
-SOURCE = os.path.join(_PKG_DIR, "csrc", "cloudy_interp.cu")
-#: the network kernel's flags (ops/network_kernel.py) but for FMA
-#: contraction, left at nvcc's default as in PyTorch's own build: CUDA's
-#: pow rounds differently under -fmad=false (an ulp in 12 of phase 2c's
-#: 504 card checks, PERF.md).  The kernels' own arithmetic is explicit
-#: round-to-nearest intrinsics, which no flag contracts
-NVCC_FLAGS = ["-fmad=true" if f == "-fmad=false" else f
-              for f in network_kernel.NVCC_FLAGS]
+SOURCE = os.path.join(PKG_DIR, "csrc", "cloudy_interp.cu")
+#: the kernels call CUDA's pow
+NVCC_FLAGS = POW_FLAGS
 #: threads a CTA, one cell each: csrc/cloudy_interp.cu's BLOCK
 BLOCK = 128
 
@@ -88,55 +79,12 @@ class _CloudyArgs(ctypes.Structure):
     ]
 
 
-#: launches issued on the host since the process started (or
-#: zero_launch_counts), eager or recorded into a capture, per entry
-launches = collections.Counter()
-#: of ``launches``, those recorded into a capture, per entry
-recorded = collections.Counter()
-_replays = ReplayCounter()
-
-_lib = None
-_lib_lock = threading.Lock()
-#: compiler output of this process's build ("" when the library existed)
-build_log = ""
-
-
-def build() -> str:
-    """Compile csrc/cloudy_interp.cu with nvcc (if not yet built) and
-    return the library path.  Raises if nvcc fails."""
-    global build_log
-    out, log = compile_library(SOURCE, NVCC_FLAGS)
-    if log:
-        build_log = log
-    return out
-
-
-def load():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            cint_p = ctypes.POINTER(ctypes.c_int)
-            lib.grackle_cloudy_layout.argtypes = [cint_p] * 5
-            lib.grackle_cloudy_layout.restype = ctypes.c_int
-            for fn in (lib.grackle_cloudy_fixed_point,
-                       lib.grackle_cloudy_cooling):
-                fn.argtypes = [ctypes.POINTER(_CloudyArgs), ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            vals = [ctypes.c_int() for _ in range(5)]
-            size = lib.grackle_cloudy_layout(*map(ctypes.byref, vals))
-            got = tuple(v.value for v in vals) + (size,)
-            want = (N_IN, N_OUT, N_SCALAR, N_DATA, BLOCK,
-                    ctypes.sizeof(_CloudyArgs))
-            if got != want:
-                raise RuntimeError(
-                    f"Cloudy kernel layout mismatch: the library has "
-                    f"(in, out, scalar, data slots, block, struct bytes) "
-                    f"{got}, the wrapper {want}")
-            _lib = lib
-    return _lib
+library = Library(
+    "Cloudy kernel", SOURCE, NVCC_FLAGS, _CloudyArgs, "grackle_cloudy_layout",
+    {"in slots": N_IN, "out slots": N_OUT, "scalar slots": N_SCALAR,
+     "data slots": N_DATA, "block": BLOCK},
+    {"fixed_point": "grackle_cloudy_fixed_point",
+     "cooling": "grackle_cloudy_cooling"})
 
 
 def _grid_fields(cloudy, data, device, dtype):
@@ -180,53 +128,6 @@ def _scalar(v, name, device, dtype):
     return v
 
 
-def _launch(entry, args, dtype, device):
-    """Launch ``entry`` on the current stream of ``device`` and count it:
-    on the host, and where the launch is recorded into a capture on an
-    armed device, on the device at every replay."""
-    lib = load()
-    fn = (lib.grackle_cloudy_fixed_point if entry == "fixed_point"
-          else lib.grackle_cloudy_cooling)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.byref(args), int(dtype == torch.float64),
-                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"Cloudy kernel {entry} launch failed: CUDA "
-                           f"error {err}")
-    launches[entry] += 1
-    if torch.cuda.is_current_stream_capturing():
-        recorded[entry] += 1
-        _replays.record(device)
-
-
-def count_replays(device):
-    """Count on ``device`` the Cloudy launches that CUDA graphs captured
-    from now on make when they replay; a no-op off the card.  Not inside
-    a capture."""
-    _replays.arm(device)
-
-
-def replayed_launches() -> int:
-    """The Cloudy launches that graphs replayed since the counts were
-    armed or zeroed, summed over the devices (reads them on the host)."""
-    return _replays.total()
-
-
-def executed_launches() -> int:
-    """The Cloudy launches that ran on the card since the counts were
-    zeroed: the eager ones and those that armed graphs replayed."""
-    return (sum(launches.values()) - sum(recorded.values())
-            + replayed_launches())
-
-
-def zero_launch_counts():
-    """Set the host counts and every device's replay count to 0."""
-    launches.clear()
-    recorded.clear()
-    _replays.zero()
-
-
 def _operands(tensors, device):
     """The per-cell operands (None where unused), of one shape, dtype and
     device, each as a contiguous [N] tensor: (shape, flat tensors,
@@ -265,14 +166,14 @@ class _FixedPoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cloudy, *args):
-        _save(ctx, cloudy, args)
+        save_twin_args(ctx, (cloudy,), args)
         return _fixed_point_launch(cloudy, *args)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
-        return (None, *_twin_vjp(ctx, _plain_temp.tabulated_temperature,
-                                 grads))
+        return (None, *twin_vjp(ctx, _plain_temp.tabulated_temperature,
+                                grads))
 
 
 class _Cooling(torch.autograd.Function):
@@ -280,42 +181,13 @@ class _Cooling(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cloudy, *args):
-        _save(ctx, cloudy, args)
+        save_twin_args(ctx, (cloudy,), args)
         return _cooling_launch(cloudy, *args)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
-        return (None, *_twin_vjp(ctx, _plain_cool.cloudy_cooling, grads))
-
-
-def _save(ctx, cloudy, args):
-    """Keep a launch's table, tensors and other arguments for its
-    backward."""
-    is_tensor = [isinstance(a, torch.Tensor) for a in args]
-    ctx.cloudy, ctx.is_tensor = cloudy, is_tensor
-    ctx.consts = [None if t else a for a, t in zip(args, is_tensor)]
-    ctx.save_for_backward(*(a for a, t in zip(args, is_tensor) if t))
-
-
-def _twin_vjp(ctx, twin, grads):
-    """The gradient of every argument after the table (None where it
-    needs none): the vector-Jacobian product of ``twin``, recomputed on
-    the forward's inputs."""
-    saved = iter(ctx.saved_tensors)
-    needs = ctx.needs_input_grad[1:]
-    args = [next(saved).detach().requires_grad_(need) if t else a
-            for a, t, need in zip(ctx.consts, ctx.is_tensor, needs)]
-    with torch.enable_grad():
-        outs = twin(ctx.cloudy, *args)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-    wrt = [a for a, need in zip(args, needs) if need]
-    got = iter(torch.autograd.grad([o for o, _ in pairs],
-                                   wrt, [g for _, g in pairs],
-                                   allow_unused=True)
-               if pairs else [None] * len(wrt))
-    return [next(got) if need else None for need in needs]
+        return (None, *twin_vjp(ctx, _plain_cool.cloudy_cooling, grads))
 
 
 def _fixed_point_launch(cloudy, d, metal, e, rhoH, dom, zr, temstart,
@@ -337,7 +209,7 @@ def _fixed_point_launch(cloudy, d, metal, e, rhoH, dom, zr, temstart,
     args.imetal = int(bool(imetal))
     args.gamma_m1 = gamma - 1.0
     args.temstart = float(temstart)
-    _launch("fixed_point", args, dtype, device)
+    library.launch("fixed_point", args, dtype, device)
     return tgas, mmw
 
 
@@ -362,7 +234,7 @@ def _cooling_launch(cloudy, logtem, rhoH, metallicity, dom, zr, comp2,
     args.icmbTfloor = int(icmbTfloor == 1)
     args.iClHeat = int(heat)
     args.iZscale = int(zscale)
-    _launch("cooling", args, dtype, device)
+    library.launch("cooling", args, dtype, device)
     return edot
 
 
@@ -380,14 +252,7 @@ def _args(n, rank, dims, pars, data, scalars, ins, outs):
     return args
 
 
-def _runs_kernel(device) -> bool:
-    """Whether a call on ``device`` launches the kernel: on CUDA
-    tensors; CPU tensors run the twin, other devices raise."""
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"no Cloudy lookup for device {device}")
-    return True
+_runs_kernel = functools.partial(runs_kernel, what="Cloudy lookup")
 
 
 def tabulated_temperature(cloudy, d, metal, e, rhoH, dom, zr, temstart,

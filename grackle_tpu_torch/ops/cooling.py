@@ -16,9 +16,8 @@ import torch
 
 from .. import tracing
 from ..constants import mh, tiny
-from . import cloudy_cool, cloudy_kernel
+from . import cloudy_cool, cloudy_kernel, dust_kernel
 from .common import dtype_tiny8
-from .dust_temp import calc_tdust_1d
 from .lookup import TableLookup, table_index
 
 MU_METAL = 16.0  # approx. mean molecular weight of metals
@@ -298,11 +297,11 @@ def cool1d_multi(
         gasgr_tdust = (
             cfg.local_dust_to_gas_ratio * gasgr * us.coolunit / mh
         )
-        tdust = calc_tdust_1d(
-            tgas, mynh, gasgr_tdust, tables.gamma_isrf, myisrf,
-            torch.ones(d.shape, dtype=torch.bool, device=d.device),
-            us.comp2, tdust_init=tdust_prev,
-        )
+        with tracing.dust_block(d):
+            tdust = dust_kernel.dust_temperature(
+                tgas, mynh, gasgr_tdust, tables.gamma_isrf, myisrf, None,
+                us.comp2, tdust_init=tdust_prev,
+            )
         edot = edot - gasgr * (tgas - tdust) * dust2gas * rhoH * rhoH
 
     # --- photoionization heating (cool1d_multi_g.F:758-913) ---

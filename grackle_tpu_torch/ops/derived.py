@@ -12,10 +12,9 @@ from __future__ import annotations
 import torch
 
 from ..constants import mh, tiny
-from . import cloudy_kernel
+from . import cloudy_kernel, dust_kernel
 from .common import ipow
 from .cooling import cool1d_multi
-from .dust_temp import calc_tdust_1d
 from .lookup import lookup, table_index
 
 MU_METAL = 16.0
@@ -141,9 +140,8 @@ def calculate_dust_temperature(cfg, tables, cloudy_prim, us, f, units,
     gasgr = gasgr * cfg.local_dust_to_gas_ratio * us.coolunit / mh
 
     trad = 2.73 * (1.0 + us.zr)
-    return calc_tdust_1d(
-        temperature, nh, gasgr, tables.gamma_isrf, myisrf,
-        torch.ones(d.shape, dtype=torch.bool, device=d.device), trad,
+    return dust_kernel.dust_temperature(
+        temperature, nh, gasgr, tables.gamma_isrf, myisrf, None, trad,
     )
 
 

@@ -11,6 +11,11 @@ eager, on the device inside a CUDA-graph capture).  This is bit-identical
 to checking after every step: each update is masked, and steps after a
 cell converges leave it untouched.
 
+On CUDA tensors the solve is one launch of csrc/dust_temp.cu instead,
+one thread a cell (ops/dust_kernel.py routes the calls): this function
+is that kernel's plain twin and the CPU path, and the two agree bit for
+bit on the card.
+
 All quantities here are CGS (the reference keeps the dust solve in CGS;
 see rate_functions.c:1328-1336).
 """
@@ -70,7 +75,7 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
       gasgr: gas/grain heat transfer rate (CGS, already scaled by fgr).
       gamma_isrf_coef: scalar ISRF heating coefficient (gamma_isrf rate).
       isrf: per-cell ISRF in Habing units.
-      itmask: active-cell mask (bool).
+      itmask: active-cell mask (bool); None for every cell.
       trad: CMB temperature (0-d tensor of the fields' dtype).
       tdust_init: optional warm start (e.g. the previous subcycle's
         solution).  Newton converges to the same equilibrium root
@@ -92,6 +97,8 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
         ok = (tdust_init > trad) & (tdust_init < T_SUBL)
         tdust0 = torch.where(ok, tdust_init, tdust0)
     pert0 = torch.full_like(tgas, PERT_I)
+    if itmask is None:
+        itmask = torch.ones(tgas.shape, dtype=torch.bool, device=tgas.device)
 
     sub_mask = tgas > T_SUBL  # straight to bisection
     done_cold = trad >= tgas  # radiative equilibrium with CMB
@@ -154,16 +161,12 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
         t_low = torch.where(bi_mask & good, lo_c, t_low)
         t_high = torch.where(bi_mask & good, hi_c, t_high)
 
-    def bi_body(carry, it):
-        t_low, t_high, bi_mask = carry
+    def bi_body(carry, _):
+        t_low, t_high, bi_mask, first = carry
+        # the first step clamps at T_SUBL; the flag is a 0-d carry, so the
+        # eager loop and a capture take the same select
         t_mid = 0.5 * (t_low + t_high)
-        # the first step clamps at T_SUBL; inside a capture the step index
-        # is a device tensor and the clamp a select
-        if isinstance(it, torch.Tensor):
-            t_mid = torch.where(it == 0, torch.clamp(t_mid, max=T_SUBL),
-                                t_mid)
-        elif it == 0:
-            t_mid = torch.clamp(t_mid, max=T_SUBL)
+        t_mid = torch.where(first, torch.clamp(t_mid, max=T_SUBL), t_mid)
         kgr = calc_kappa_gr(t_mid)
         sol = calc_gr_balance(t_mid, tgas, kgr, trad4, gasgr,
                               gamma_isrf, nh)
@@ -172,10 +175,12 @@ def calc_tdust_1d(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
         t_high_new = torch.where(bi_mask & ~go_up, t_mid, t_high)
         conv = torch.abs(t_high_new - t_low_new) / t_low_new <= BI_TOL
         bi_mask = bi_mask & ~conv
-        return t_low_new, t_high_new, bi_mask
+        return t_low_new, t_high_new, bi_mask, torch.zeros_like(first)
 
-    (t_low, _, _), _ = device_while(
-        lambda c: c[2], bi_body, (t_low, t_high, bi_mask), BI_ITMAX, BLOCK,
+    first = torch.ones((), dtype=torch.bool, device=tgas.device)
+    (t_low, _, _, _), _ = device_while(
+        lambda c: c[2], bi_body, (t_low, t_high, bi_mask, first), BI_ITMAX,
+        BLOCK,
     )
 
     return torch.where(itmask, t_low, tdust)

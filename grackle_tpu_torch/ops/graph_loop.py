@@ -9,8 +9,8 @@ starts capturing its body on another stream, :func:`end` ends it;
 :func:`capture_id`, :func:`retain` and :func:`released` let the caller
 keep a capture's memory until its graph is destroyed.  The
 library is built at first use with ``nvcc`` for sm_90a from the source in
-this package, into ``grackle_tpu_torch/_build/``, as the network kernel
-is (ops/network_kernel.py).  A runtime or driver older than CUDA 12.4
+this package, into ``grackle_tpu_torch/_build/``, as the other kernels
+are (ops/kernel_lib.py).  A runtime or driver older than CUDA 12.4
 has no conditional nodes: :func:`load` raises and names both versions.
 There is no eager substitute for a node inside a capture.
 """
@@ -23,9 +23,9 @@ import threading
 
 import torch
 
-from .network_kernel import _PKG_DIR, compile_library
+from .kernel_lib import PKG_DIR, compile_library
 
-SOURCE = os.path.join(_PKG_DIR, "csrc", "graph_loop.cu")
+SOURCE = os.path.join(PKG_DIR, "csrc", "graph_loop.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

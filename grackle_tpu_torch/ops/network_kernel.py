@@ -21,28 +21,18 @@ is shaped as it is.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import torch
 
 from . import network as _plain
 from .common import as_dt, dtype_huge8, dtype_tiny8, dtype_tolerance
+from .kernel_lib import EXACT_FLAGS, PKG_DIR, ReplayCounter, compile_library
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "network_update.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction, IEEE division/sqrt, no flush-to-zero: each
-    # operation rounds as the plain twin's separate PyTorch op does
-    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    # report registers, shared memory and spills in the build log
-    "-Xptxas=-v",
-]
+SOURCE = os.path.join(PKG_DIR, "csrc", "network_update.cu")
+#: each operation rounds as the plain twin's separate PyTorch op does
+NVCC_FLAGS = EXACT_FLAGS
 
 #: cells per tile, one thread each (a CTA of four warps):
 #: csrc/network_update.cu's TILE
@@ -121,45 +111,6 @@ _lib = None
 _lib_lock = threading.Lock()
 #: compiler output of this process's build ("" when the library existed)
 build_log = ""
-
-
-def _nvcc():
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def library_path(source=SOURCE, flags=NVCC_FLAGS) -> str:
-    """Where the library of ``source`` built with ``flags`` goes: the file
-    name carries a hash of the source and flags, so an edited source is
-    rebuilt."""
-    with open(source, "rb") as fh:
-        digest = hashlib.sha256(
-            fh.read() + " ".join(flags).encode()
-        ).hexdigest()[:16]
-    stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
-
-
-def compile_library(source, flags) -> tuple[str, str]:
-    """Compile ``source`` with nvcc into a shared library (if not yet
-    built).  Returns (library path, compiler output; "" when the library
-    existed).  Raises if nvcc fails."""
-    out = library_path(source, flags)
-    if os.path.exists(out):
-        return out, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-o", tmp, source]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {os.path.basename(source)}:\n"
-            + " ".join(cmd) + "\n" + res.stdout + res.stderr
-        )
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
 
 
 def build() -> str:
@@ -423,55 +374,6 @@ def network_update_cuda(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
 
 
 network_update_cuda.launches = 0
-
-
-def _device_index(device) -> int:
-    device = torch.device(device)
-    return (device.index if device.index is not None
-            else torch.cuda.current_device())
-
-
-class ReplayCounter:
-    """A count, on each armed card, of the launches that CUDA graphs make
-    when they replay: a launch recorded into a capture on an armed device
-    gets a node beside it that adds 1 each time it runs (atomically:
-    graphs replay on several streams).  Graphs captured before a device
-    was armed are not counted."""
-
-    def __init__(self):
-        #: per device index: (count, index, one), int64 tensors of one
-        #: element on that device
-        self._armed = {}
-
-    def arm(self, device):
-        """Count on ``device`` from now on; a no-op off the card and where
-        the device already counts.  Not inside a capture."""
-        if torch.device(device).type != "cuda":
-            return
-        index = _device_index(device)
-        if index not in self._armed:
-            dev = torch.device("cuda", index)
-            self._armed[index] = (
-                torch.zeros(1, dtype=torch.int64, device=dev),
-                torch.zeros(1, dtype=torch.int64, device=dev),
-                torch.ones(1, dtype=torch.int64, device=dev))
-
-    def record(self, device):
-        """Inside a capture, beside a launch recorded on ``device``: the
-        counting node, where the device is armed."""
-        armed = self._armed.get(_device_index(device))
-        if armed is not None:
-            count, index, one = armed
-            count.index_add_(0, index, one)
-
-    def total(self) -> int:
-        """The replayed launches since arming or zeroing, summed over the
-        devices (reads them on the host)."""
-        return sum(int(count) for count, _, _ in self._armed.values())
-
-    def zero(self):
-        for count, _, _ in self._armed.values():
-            count.zero_()
 
 
 _replays = ReplayCounter()

@@ -1,6 +1,6 @@
 """The port's own spans and counters, process-wide, cheap enough to stay
-on in every run (as ``ops/device_loop.body_nodes`` and
-``ops/cloudy_kernel.count_replays`` are).
+on in every run (as ``ops/device_loop.body_nodes`` and the kernels'
+launch counts, ``ops/kernel_lib.Library``, are).
 
 - :data:`call_scalars`: a host span, the seconds a stateful call
   (``api.solve_chemistry``) spends on its scalar work: the unit scalars,
@@ -17,6 +17,10 @@ on in every run (as ``ops/device_loop.body_nodes`` and
   so it costs nothing at replay and nothing on an eager call.  A
   subcycle body runs each block once, so their sum is the shielding's
   nodes a subcycle (:func:`shield_nodes_per_subcycle`).
+- :data:`dust_nodes`: likewise, the nodes the equilibrium dust
+  temperature of ``ops/cooling.cool1d_multi`` added to the graph being
+  captured, at its latest capture (None before any): one launch of
+  csrc/dust_temp.cu on the card (:func:`dust_nodes_per_subcycle`).
 """
 
 from __future__ import annotations
@@ -50,23 +54,47 @@ class Span:
 
 call_scalars = Span()
 shield_nodes: dict = {}
+dust_nodes = None
 
 
 @contextlib.contextmanager
-def shield_block(name: str, ref: torch.Tensor):
+def _nodes_added(ref: torch.Tensor, store):
     """Count the nodes that the work inside adds to the graph the current
-    stream of ``ref``'s device is capturing, into ``shield_nodes[name]``;
-    nothing where that stream is not capturing."""
+    stream of ``ref``'s device is capturing, and pass the count to
+    ``store``; nothing where that stream is not capturing."""
     if ref.device.type != "cuda" or \
             not torch.cuda.is_current_stream_capturing():
         yield
         return
     before = graph_loop.capture_nodes(ref.device)
     yield
-    shield_nodes[name] = graph_loop.capture_nodes(ref.device) - before
+    store(graph_loop.capture_nodes(ref.device) - before)
+
+
+def shield_block(name: str, ref: torch.Tensor):
+    """Count the nodes of the shielding block ``name`` into
+    ``shield_nodes[name]`` (see :func:`_nodes_added`)."""
+    return _nodes_added(ref, lambda n: shield_nodes.__setitem__(name, n))
+
+
+def dust_block(ref: torch.Tensor):
+    """Count the nodes of the dust temperature solve of
+    ``ops/cooling.cool1d_multi`` into ``dust_nodes`` (see
+    :func:`_nodes_added`)."""
+    def store(n):
+        global dust_nodes
+        dust_nodes = n
+
+    return _nodes_added(ref, store)
 
 
 def shield_nodes_per_subcycle():
     """The shielding's nodes in one captured subcycle body (the sum over
     its blocks at their latest capture); None before any capture."""
     return sum(shield_nodes.values()) if shield_nodes else None
+
+
+def dust_nodes_per_subcycle():
+    """The dust temperature's nodes in one captured subcycle body, at its
+    latest capture; None before any capture."""
+    return dust_nodes

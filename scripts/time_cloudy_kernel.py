@@ -84,9 +84,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    ck.load()
-    print("ptxas: " + (" ".join(ck.build_log.split()) or "(cached build)"),
-          flush=True)
+    ck.library.load()
+    log = " ".join(ck.library.build_log.split())
+    print("ptxas: " + (log or "(cached build)"), flush=True)
     for (grid, sizes), precision in itertools.product(GRIDS.items(),
                                                       (64, 32)):
         cd = cs.answer_chem("cuda", synthetic_cloudy_groups(**sizes),

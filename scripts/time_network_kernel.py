@@ -18,10 +18,11 @@ Run from the repository root on a machine with a CUDA device:
 ``--root`` times the grackle_tpu_torch package of another checkout (its
 kernel source, wrapper and solver), still with this checkout's timing,
 so that two commits' kernels can be held against each other in one call,
-one process each.  Prints the card's name and power limit, the build's
-ptxas report, each kernel's floating-point instructions in its sm_90a
-code (a static count from ``cuobjdump -sass``: chip_smoke.OPS_PER_CELL),
-and one JSON line per dtype and width.
+one process each (a checkout whose package has ops/kernel_lib.py).
+Prints the card's name and power limit, the build's ptxas report, each
+kernel's floating-point instructions in its sm_90a code (a static count
+from ``cuobjdump -sass``: chip_smoke.OPS_PER_CELL), and one JSON line per
+dtype and width.
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ def main() -> int:
         print("time_network_kernel: no CUDA device", file=sys.stderr)
         return 2
     from grackle_tpu_torch.api import _compact_batch
+    from grackle_tpu_torch.ops import kernel_lib
     from grackle_tpu_torch.ops import network_kernel as nk
     from grackle_tpu_torch.ops.solver import warm_tile_width
 
@@ -105,7 +107,7 @@ def main() -> int:
     print(card, flush=True)
     nk.load()
     print("ptxas: " + " ".join(nk.build_log.split()), flush=True)
-    sass = float_instructions(nk.library_path(), nk._nvcc())
+    sass = float_instructions(nk.build(), kernel_lib.nvcc())
     print(json.dumps({"float_instructions": sass, "total": {
         k: sum(v.values()) for k, v in sass.items()}}), flush=True)
     batch = _compact_batch(cs.N_FLAGSHIP)

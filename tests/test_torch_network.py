@@ -29,6 +29,7 @@ from grackle_tpu_torch.config import default_config
 from grackle_tpu_torch.convert import context_from_numpy
 from grackle_tpu_torch.ops import chemistry_step as pcs
 from grackle_tpu_torch.ops import cooling as pcooling
+from grackle_tpu_torch.ops import dust_kernel
 from grackle_tpu_torch.ops import dust_temp as pdust
 from grackle_tpu_torch.ops import network as pnetwork
 from grackle_tpu_torch.ops import network_kernel
@@ -284,18 +285,19 @@ def test_lookup_cool_rates_matches(dust_contexts):
 
 
 def test_calc_tdust_1d_matches(dust_contexts, monkeypatch):
-    """calc_tdust_1d on the arguments cool1d_multi hands it, cold and
+    """calc_tdust_1d on the arguments cool1d_multi hands the dust
+    temperature's router (ops/dust_kernel.dust_temperature), cold and
     warm-started; the blocked early exit must give the JAX loops'
     answer, and the answer of a check after every step."""
     jcd, pctx, fields = dust_contexts
     seen = []
-    real = pcooling.calc_tdust_1d
+    real = dust_kernel.dust_temperature
 
     def record(*args, **kw):
         seen.append((args, kw))
         return real(*args, **kw)
 
-    monkeypatch.setattr(pcooling, "calc_tdust_1d", record)
+    monkeypatch.setattr(dust_kernel, "dust_temperature", record)
     n = fields["density"].shape[0]
     cool, _ = _cool_both(jcd, pctx, fields, np.zeros(n),
                          np.ones(n, dtype=bool), np.zeros(n))
@@ -306,8 +308,12 @@ def test_calc_tdust_1d_matches(dust_contexts, monkeypatch):
         def conv(x, to):
             return to(x.numpy()) if isinstance(x, torch.Tensor) else x
 
+        jargs = [conv(a, jnp.asarray) for a in args]
+        if jargs[5] is None:
+            # the port's itmask None: every cell
+            jargs[5] = jnp.ones(n, dtype=bool)
         want = jdust.calc_tdust_1d(
-            *[conv(a, jnp.asarray) for a in args],
+            *jargs,
             tdust_init=None if tdust_init is None
             else jnp.asarray(tdust_init.numpy()))
         got = pdust.calc_tdust_1d(*args, tdust_init=tdust_init)

@@ -71,3 +71,13 @@ def test_shield_block_counts_nothing_off_a_capture(monkeypatch):
     monkeypatch.setattr(tracing, "shield_nodes",
                         {"rahmati": 40, "h2": 20, "photo_heating": 12})
     assert tracing.shield_nodes_per_subcycle() == 72
+
+
+def test_dust_block_counts_nothing_off_a_capture(monkeypatch):
+    monkeypatch.setattr(tracing, "dust_nodes", None)
+    with tracing.dust_block(torch.zeros(4)):
+        torch.zeros(4) + 1.0
+    assert tracing.dust_nodes is None
+    assert tracing.dust_nodes_per_subcycle() is None
+    monkeypatch.setattr(tracing, "dust_nodes", 1)
+    assert tracing.dust_nodes_per_subcycle() == 1
