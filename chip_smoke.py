@@ -59,8 +59,9 @@ body.  Phases:
    requires grad (one launch, the twin's gradient); the flagship's
    stateful calls at 4,096 cells, one dust launch a subcycle body and a
    subcycle run, 1 to 3 dust nodes in the captured body, replays at
-   changing a_values bit-identical to the uncached body; the kernel's
-   device time beside its bound and the captured twin's replay time;
+   changing a_values bit-identical to the uncached body; the bare
+   launch's device time beside its bound and the captured twin's replay
+   time;
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
@@ -178,19 +179,16 @@ body.  Phases:
    launch of the process, and with it phases 3 to 4e.
 
 Each phase prints one line (4m and 4n one for each run).  Then one JSON
-line lists the kernels (the network kernel's launches are the sum over
-the runs of phases 4 f64, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l and 4n's
-stateful calls, each counted from 0 just before it, and 4m's replays:
-an eager launch counted by the wrapper on the host, a launch recorded
-into a graph counted on the card at every replay by a node beside it
-(ops/network_kernel.count_replays), a host program of 4i or 4k counting
-its own through GRACKLE_TPU_TORCH_LAUNCH_LOG; the loop kernel's are 4m's
-and 4n's replays' launches, which it counts on the device; the Cloudy
-and the dust kernels' are counted in the same runs as the network
-kernel's and in the same way, ops/kernel_lib.Library.count_replays, but
-for the host programs of 4i and 4k, which report only the network
-kernel's, and exclude phases 2c's and 2d's direct calls), and the last
-line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
+line lists the kernels (the network, the Cloudy and the dust kernels'
+launches are the sums over the runs of phases 4 f64, 4d, 4e, 4f, 4g,
+4h, 4i, 4j, 4k, 4l and 4n's stateful calls, each counted from 0 just
+before it, and 4m's replays: an eager launch counted on the host, a
+launch recorded into a graph counted on the card at every replay by a
+node beside it (ops/kernel_lib.count_replays), a host program of 4i or
+4k counting its network launches through GRACKLE_TPU_TORCH_LAUNCH_LOG;
+phases 2 to 2d's direct calls are not counted; the loop kernel's are
+4m's and 4n's replays' launches, which it counts on the device), and
+the last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
 jax nor grackle_tpu.
@@ -220,7 +218,12 @@ import traceback
 
 import numpy as np
 
+from portbench.yardstick.peaks import HBM_BYTES_PER_S
+
 REPO = os.path.dirname(os.path.abspath(__file__))
+#: the kernel libraries' names (ops/kernel_lib.Library.what): the keys of
+#: launches_run()
+NETWORK, CLOUDY, DUST = "network kernel", "Cloudy kernel", "dust kernel"
 N_FLAGSHIP = 1_048_576
 DT_FLAGSHIP = 1.0e-4
 CAPTURE_AT = (0, 24)  # subcycles whose network inputs phase 2 replays
@@ -228,18 +231,17 @@ N_CONFIGS = 4096  # cells of phase 2b's per-configuration checks
 TIMING_REPS = 20
 #: bytes zeroed before each timed launch: five times the H100's 50 MB L2
 FLUSH_BYTES = 256 * 2**20
-#: the least time of one network launch: its bytes at the published
-#: 3.35 TB/s of an H100 SXM, or its arithmetic at the card's rate of
-#: floating-point instructions.  OPS_PER_CELL is, per element size, the
+#: the least time of one network launch: its bytes at HBM_BYTES_PER_S
+#: (the published 3.35 TB/s of an H100 SXM), or its arithmetic at the
+#: card's rate of floating-point instructions.  OPS_PER_CELL is, per
+#: element size, the
 #: add, multiply, FMA and compare instructions of that type in the
-#: kernel's sm_90a code, a static count (scripts/time_network_kernel.py,
-#: from `cuobjdump -sass`): the body has no loops, so it is about what a
-#: cell runs, with the branches of other configurations in it.  The
-#: published 34 TFLOP/s of float64 outside the tensor cores (67 in
-#: float32) count an FMA as two operations: half of it is the rate of
-#: instructions
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_CELL = {8: 969, 4: 858}
+#: kernel's sm_90a code, a static count (scripts/time_kernels.py, from
+#: `cuobjdump -sass`): the body has no loops, so it is about what a cell
+#: runs, with the branches of other configurations in it.  The published
+#: 34 TFLOP/s of float64 outside the tensor cores (67 in float32) count
+#: an FMA as two operations: half of it is the rate of instructions
+OPS_PER_CELL = {8: 971, 4: 858}
 PEAK_OPS_PER_S = {8: 17.0e12, 4: 33.5e12}
 #: the kernel runs its twin's IEEE operations in the same order: every
 #: float output must be bit-identical, in f32 and f64
@@ -974,43 +976,22 @@ def device_fields(fields, device="cuda"):
 
 
 def zero_launches():
-    """Set the network, the Cloudy and the dust kernels' launch counts to
-    0: the wrappers' host launches and, counted on the card, those of
-    graph replays (armed here for the graphs captured from now on)."""
-    from grackle_tpu_torch.ops import cloudy_kernel, dust_kernel
-    from grackle_tpu_torch.ops import network_kernel
+    """Set every kernel library's launch counts to 0: the host launches
+    and, counted on the card, those of graph replays (armed here for the
+    graphs captured from now on)."""
+    from grackle_tpu_torch.ops import kernel_lib
 
-    network_kernel.count_replays("cuda")
-    network_kernel.zero_launch_counts()
-    for lib in (cloudy_kernel.library, dust_kernel.library):
-        lib.count_replays("cuda")
-        lib.zero()
+    kernel_lib.count_replays("cuda")
+    kernel_lib.zero_counts()
 
 
 def launches_run():
-    """The network kernel's launches since zero_launches(): the host's
-    and the graph replays' (counted on the card, read here)."""
-    from grackle_tpu_torch.ops.network_kernel import (network_update_cuda,
-                                                      replayed_launches)
+    """{NETWORK, CLOUDY, DUST: the launches since zero_launches() that
+    ran on the card}: the eager ones and the graph replays' (counted on
+    the card, read here)."""
+    from grackle_tpu_torch.ops import kernel_lib
 
-    return network_update_cuda.launches + replayed_launches()
-
-
-def cloudy_launches_run():
-    """The Cloudy kernels' launches since zero_launches() that ran on the
-    card: the eager ones and the graph replays' (counted on the card,
-    read here)."""
-    from grackle_tpu_torch.ops import cloudy_kernel
-
-    return cloudy_kernel.library.executed()
-
-
-def dust_launches_run():
-    """The dust kernel's launches since zero_launches() that ran on the
-    card, counted as cloudy_launches_run counts the Cloudy kernels'."""
-    from grackle_tpu_torch.ops import dust_kernel
-
-    return dust_kernel.library.executed()
+    return kernel_lib.executed()
 
 
 def check_dust_launches(where, cfg, ran, subcycles):
@@ -1316,27 +1297,16 @@ def eager_subcycles(cd, fields, dt, steps, inputs_at=(), captured=None):
     """Run the first ``steps`` subcycles of the monolithic solve of
     ``fields`` eagerly; append (step, the network region's inputs) to
     ``captured`` at each step in ``inputs_at``."""
-    from grackle_tpu_torch.api import _prep_fields
+    from grackle_tpu_torch.api import _prep_fields, call_scalars
     from grackle_tpu_torch.ops import solver
+    from grackle_tpu_torch.ops.common import block_scalars
 
     ctx = cd.context
     cfg = ctx.config
     f, imetal = _prep_fields(ctx, fields)
-    try:
-        from grackle_tpu_torch.api import call_scalars
-        from grackle_tpu_torch.ops.common import block_scalars
-    except ImportError:
-        # a package from before the scalar block (another checkout timed
-        # by scripts/time_network_kernel.py --root): host floats
-        from grackle_tpu_torch.api import _photo_rates
-        from grackle_tpu_torch.ops.common import make_unit_scalars
-
-        us = make_unit_scalars(cfg, ctx.tables, ctx.units)
-        pr = _photo_rates(cfg, ctx.tables, ctx.uvb, ctx.units)
-    else:
-        # the unit scalars and photo rates as a body reads them: 0-d
-        # views of the call's scalar block on the fields' device
-        us, pr, _ = block_scalars(call_scalars(ctx, f["density"].device))
+    # the unit scalars and photo rates as a body reads them: 0-d views of
+    # the call's scalar block on the fields' device
+    us, pr, _ = block_scalars(call_scalars(ctx, f["density"].device))
     f, itmask0 = solver.prepare_fields(cfg, f, us, imetal, False)
     f_state, f_const = solver.split_state(cfg, f)
     carry = solver.init_carry(f_state, itmask0, cfg)
@@ -1742,16 +1712,10 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
-        #: kernel launches of each main-path run, counted from 0 just
-        #: before it: the kernel line's launches are their sum
+        #: each main-path run's launches_run(), counted from 0 just
+        #: before it (the host programs of 4i and 4k count only the
+        #: network kernel's): each kernel line's launches are their sum
         self.path_launches = {}
-        #: the Cloudy kernels' launches of the same runs (the host
-        #: programs of 4i and 4k aside, which count only the network
-        #: kernel's): the cloudy_interp line's launches are their sum
-        self.cloudy_path_launches = {}
-        #: the dust kernel's launches of the same runs, likewise: the
-        #: dust_temp line's launches are their sum
-        self.dust_path_launches = {}
         #: nvidia-smi's name and power limit of the card (phase 0)
         self.card = "not read"
 
@@ -1806,7 +1770,7 @@ class Smoke:
             path = mod.build()
             return path, time.time() - t0
 
-        mods = (network_kernel, graph_loop, cloudy_kernel.library,
+        mods = (network_kernel.library, graph_loop, cloudy_kernel.library,
                 dust_kernel.library)
         t0 = time.time()
         with ThreadPoolExecutor(len(mods)) as pool:
@@ -1819,7 +1783,7 @@ class Smoke:
         rt, drv = graph_loop.versions
         logs = "; ".join(
             f"{name} ptxas: {' '.join(mod.build_log.split()) or '(cached)'}"
-            for name, mod in (("network", network_kernel),
+            for name, mod in (("network", network_kernel.library),
                               ("Cloudy", cloudy_kernel.library),
                               ("dust", dust_kernel.library)))
         return (f"built {built}, {wall:.2f} s together; the loop library's "
@@ -2115,7 +2079,7 @@ class Smoke:
             zero_launches()
             kind, got, _ = stateful_call(graphs, cd.solve_chemistry,
                                          dict(fields), 1.0e-4)
-            ran = cloudy_launches_run()
+            ran = launches_run()[CLOUDY]
             if ran != 3 * int(got[1]["subcycles"]):
                 raise AssertionError(f"a_value {a_value}, {dict(kind)}: "
                                      f"{ran} Cloudy launches ran for "
@@ -2189,12 +2153,13 @@ class Smoke:
                 for n in (81_920, max(DUST_WIDTHS)):
                     head = [a[:n] if isinstance(a, torch.Tensor)
                             and a.dim() else a for a in args]
-                    ms = cuda_median_ms(lambda: dust_kernel
-                                        .dust_temperature_cuda(
-                                            *head, tdust_init=init[:n]))
-                    bound = 6 * 8 * n / HBM_BYTES_PER_S * 1e3
-                    parts.append(f"kernel at {n} cells (subcycle {step}) "
-                                 f"{ms:.4f} ms, bound {bound:.5f} ms")
+                    launch, _ = dust_kernel.prepare_launch(
+                        *head, tdust_init=init[:n])
+                    ms = cuda_median_ms(launch)
+                    bound = launch.bytes / HBM_BYTES_PER_S * 1e3
+                    parts.append(f"bare launch at {n} cells (subcycle "
+                                 f"{step}) {ms:.4f} ms, bound {bound:.5f} "
+                                 f"ms")
                     if n == max(DUST_WIDTHS):
                         # the twin as a subcycle body replays it
                         graph, _, _ = capture_graph(
@@ -2365,9 +2330,8 @@ class Smoke:
             zero_launches()
             kinds, (new_f, diag), wall = stateful_call(
                 cd.context.graphs, cd.solve_chemistry, fields, DT_FLAGSHIP)
-            launches = launches_run()
-            cloudy = cloudy_launches_run()
-            dust = dust_launches_run()
+            ran = launches_run()
+            launches = ran[NETWORK]
             if kinds != {kind: 1}:
                 raise AssertionError(f"f{precision}: call {len(walls) + 1} "
                                      f"was {dict(kinds)}, not {kind}")
@@ -2375,8 +2339,8 @@ class Smoke:
                 raise AssertionError(
                     f"f{precision} {kind}: {launches} kernel launches for "
                     f"{diag['subcycles']} subcycles")
-            check_dust_launches(f"f{precision} {kind}", cd.config, dust,
-                                diag["subcycles"])
+            check_dust_launches(f"f{precision} {kind}", cd.config,
+                                ran[DUST], diag["subcycles"])
             if first is None:
                 first = (new_f, diag)
             elif tree_differences((new_f, diag), first):
@@ -2397,9 +2361,7 @@ class Smoke:
             raise AssertionError(f"f{precision}: no outer trip ran")
         eager_s, capture_s, wall = walls
         if precision == 64:
-            self.path_launches["compacted"] = launches
-            self.cloudy_path_launches["compacted"] = cloudy
-            self.dust_path_launches["compacted"] = dust
+            self.path_launches["compacted"] = ran
             self.compact64 = (new_f, diag, wall)
             self.compact64_eager = eager_s
             self.flagship64 = cd
@@ -2551,9 +2513,7 @@ class Smoke:
         import grackle_tpu_torch.functional as gfn
         from grackle_tpu_torch import chemistry_data, setup_fluid_container
         from grackle_tpu_torch.data.synthetic import synthetic_cloudy_groups
-        from grackle_tpu_torch.ops import device_loop, graph_loop
-        from grackle_tpu_torch.ops import cloudy_kernel, dust_kernel
-        from grackle_tpu_torch.ops.network_kernel import replayed_launches
+        from grackle_tpu_torch.ops import device_loop, graph_loop, kernel_lib
         from grackle_tpu_torch.utilities.physical_constants import (
             cm_per_mpc, mass_hydrogen_cgs, sec_per_Myr)
 
@@ -2801,21 +2761,18 @@ class Smoke:
         parts.append(released_pools(pools_before))
         print(f"[4m pools] {parts[-1]}", flush=True)
         loop_launches = int(launches)
-        replayed = replayed_launches()
+        ran = kernel_lib.replayed()
+        replayed = ran[NETWORK]
         if (not replay_subcycles or not loop_launches
                 or replayed != replay_subcycles):
             raise AssertionError(f"the replays ran {replay_subcycles} "
                                  f"subcycles, {replayed} network kernel "
                                  f"launches and {loop_launches} loop "
                                  f"kernel launches")
-        self.path_launches["captured_replays"] = replayed
-        self.cloudy_path_launches["captured_replays"] = \
-            cloudy_kernel.library.replayed()
-        dust = dust_kernel.library.replayed()
-        if not 0 < dust <= replay_subcycles:
-            raise AssertionError(f"the replays ran {dust} dust launches in "
-                                 f"{replay_subcycles} subcycles")
-        self.dust_path_launches["captured_replays"] = dust
+        if not 0 < ran[DUST] <= replay_subcycles:
+            raise AssertionError(f"the replays ran {ran[DUST]} dust "
+                                 f"launches in {replay_subcycles} subcycles")
+        self.path_launches["captured_replays"] = ran
         self.loop["launches"] = loop_launches
         parts.append(f"replays: {replayed} network kernel launches and "
                      f"{loop_launches} loop kernel launches (both counted "
@@ -2863,7 +2820,7 @@ class Smoke:
         def gib(b):
             return "not measured" if b is None else f"{b / 2**30:.3f} GiB"
 
-        parts, launch_total, cloudy_total, dust_total = [], [0], [0], [0]
+        parts, total = [], collections.Counter()
 
         def report(label, walls, first_capture, extra=""):
             kinds = []
@@ -2899,10 +2856,8 @@ class Smoke:
             """One stateful call, checked; returns (result, wall)."""
             zero_launches()
             kinds, got, wall = stateful_call(graphs, call, *args)
-            launches = launches_run()
-            cloudy_total[0] += cloudy_launches_run()
-            dust = dust_launches_run()
-            dust_total[0] += dust
+            ran = launches_run()
+            launches, dust = ran[NETWORK], ran[DUST]
             where = f"{label}, {kind} call"
             if set(kinds) != {kind}:
                 raise AssertionError(f"{where}: the cache made {dict(kinds)}")
@@ -2925,7 +2880,7 @@ class Smoke:
             if solve and dust not in (0, launches):
                 raise AssertionError(f"{where}: {dust} dust launches for "
                                      f"{launches} subcycles")
-            launch_total[0] += launches
+            total.update(ran)
             return got, wall
 
         def at_a_value(cd, a_value, fn):
@@ -3019,18 +2974,16 @@ class Smoke:
                             raise AssertionError(
                                 f"{label}, a_value {a_value}: the cache "
                                 f"made {dict(kinds)}")
-                        if launches_run() != solve_launches(got):
+                        ran = launches_run()
+                        if ran[NETWORK] != solve_launches(got):
                             raise AssertionError(
                                 f"{label}, a_value {a_value}: "
-                                f"{launches_run()} launches for "
+                                f"{ran[NETWORK]} launches for "
                                 f"{solve_launches(got)} subcycles")
-                        launch_total[0] += launches_run()
-                        cloudy_total[0] += cloudy_launches_run()
-                        dust = dust_launches_run()
                         check_dust_launches(f"{label}, a_value {a_value}",
-                                            cd.config, dust,
+                                            cd.config, ran[DUST],
                                             solve_launches(got))
-                        dust_total[0] += dust
+                        total.update(ran)
                         for key, val in got[0].items():
                             if not bool(torch.isfinite(val).all()):
                                 raise AssertionError(
@@ -3189,12 +3142,10 @@ class Smoke:
         torch.cuda.synchronize()
         parts.append(released_pools(pools_before))
         print(f"[4n pools] {parts[-1]}", flush=True)
-        self.path_launches["stateful_replays"] = launch_total[0]
-        self.cloudy_path_launches["stateful_replays"] = cloudy_total[0]
-        self.dust_path_launches["stateful_replays"] = dust_total[0]
+        self.path_launches["stateful_replays"] = dict(total)
         loop = int(launches_dev)
         self.loop["launches"] = (self.loop["launches"] or 0) + loop
-        parts.append(f"stateful calls: {launch_total[0]} network kernel "
+        parts.append(f"stateful calls: {total[NETWORK]} network kernel "
                      f"launches (host and replayed), {loop} loop kernel "
                      f"launches in the replays (counted on the device)")
         return "; ".join(parts)
@@ -3496,7 +3447,7 @@ class Smoke:
             new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        launches = launches_run()[NETWORK]
         if diag["trips"] != 0 or launches != diag["subcycles"]:
             raise AssertionError(f"monolithic: {diag['trips']} trips, "
                                  f"{launches} launches for "
@@ -3558,7 +3509,7 @@ class Smoke:
         graph_pool = pool_bytes(graphs.entry(graphs.keys()[0]).graph.pool())
         eager_s, capture_s, wall = walls
         energy = new_f["energy"]
-        if (launches_run() or diag["subcycles"]
+        if (launches_run()[NETWORK] or diag["subcycles"]
                 or energy.shape != (N_FLAGSHIP,)
                 or not bool(torch.isfinite(energy).all())):
             raise AssertionError(f"f{precision} exact: bad output or a "
@@ -3626,7 +3577,7 @@ class Smoke:
                 or tail_exact >= EXACT_VS_SUBCYCLED["max"]
                 or cpu_err > bound or vs64 > bound):
             raise AssertionError(msg)
-        self.path_launches["exact"] = 0
+        self.path_launches["exact"] = {NETWORK: 0}
         return msg
 
     def functional_flagship(self):
@@ -3649,7 +3600,8 @@ class Smoke:
         new_f, diag = solve(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         if launches != diag["subcycles"] or launches == 0:
             raise AssertionError(f"functional: {launches} launches for "
                                  f"{diag['subcycles']} subcycles")
@@ -3657,11 +3609,9 @@ class Smoke:
         if differ:
             raise AssertionError(f"make_solve_fn vs compacted differ in "
                                  f"{differ}")
-        check_dust_launches("functional", cd.config, dust_launches_run(),
+        check_dust_launches("functional", cd.config, ran[DUST],
                             diag["subcycles"])
-        self.path_launches["functional"] = launches
-        self.cloudy_path_launches["functional"] = cloudy_launches_run()
-        self.dust_path_launches["functional"] = dust_launches_run()
+        self.path_launches["functional"] = ran
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
                 f"{diag['trips']} trips) against phase 4's stateful "
@@ -3689,7 +3639,8 @@ class Smoke:
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         for key, val in new_f.items():
             if val.shape != (N_FLAGSHIP,) or not bool(
                     torch.isfinite(val).all()):
@@ -3710,11 +3661,9 @@ class Smoke:
                f"CPU max rel {worst:.2e}")
         if worst > ANSWER_RTOL:
             raise AssertionError(msg)
-        check_dust_launches("old-style", cd.config, dust_launches_run(),
+        check_dust_launches("old-style", cd.config, ran[DUST],
                             diag["subcycles"])
-        self.path_launches["old_style"] = launches
-        self.cloudy_path_launches["old_style"] = cloudy_launches_run()
-        self.dust_path_launches["old_style"] = dust_launches_run()
+        self.path_launches["old_style"] = ran
         self.old5 = (new_f, diag)
         return msg
 
@@ -3745,17 +3694,16 @@ class Smoke:
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         differ = bit_differences(new_f, diag, comp_f, comp_d)
         if differ or launches != comp_d["subcycles"]:
             raise AssertionError(f"restored vs phase 4: {launches} launches "
                                  f"(phase 4 {comp_d['subcycles']}), differ "
                                  f"in {differ}")
-        check_dust_launches("restored", cd.config, dust_launches_run(),
+        check_dust_launches("restored", cd.config, ran[DUST],
                             diag["subcycles"])
-        self.path_launches["serialization"] = launches
-        self.cloudy_path_launches["serialization"] = cloudy_launches_run()
-        self.dust_path_launches["serialization"] = dust_launches_run()
+        self.path_launches["serialization"] = ran
         return (f"f64 flagship restored from {len(json.dumps(state))} bytes "
                 f"of JSON: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s, "
                 f"no warm-up; phase 4 {comp_wall:.3f} s), {launches} "
@@ -3792,7 +3740,8 @@ class Smoke:
                                               DT_FLAGSHIP, mesh)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         differ = bit_differences(new_f, diag, mono_f, mono_d)
         if (differ or launches != sum(diag["subcycles"])
                 or not all(diag["trips"])):
@@ -3800,11 +3749,9 @@ class Smoke:
                 f"sharded: {launches} launches for subcycles "
                 f"{diag['subcycles']}, trips {diag['trips']}, differ from "
                 f"phase 4b in {differ}")
-        check_dust_launches("sharded", cd.config, dust_launches_run(),
+        check_dust_launches("sharded", cd.config, ran[DUST],
                             sum(diag["subcycles"]))
-        self.path_launches["sharded"] = launches
-        self.cloudy_path_launches["sharded"] = cloudy_launches_run()
-        self.dust_path_launches["sharded"] = dust_launches_run()
+        self.path_launches["sharded"] = ran
         msg = (f"f64 flagship on {N_SHARDS} shards of {width} cells "
                f"({mesh[0]}): {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s,"
                f" no warm-up), per-shard n_iterations "
@@ -3870,7 +3817,7 @@ class Smoke:
             kinds.update(cd.context.graphs.calls - before)
             return out
 
-        parts, failed, total, cloudy, dust = [], [], 0, 0, 0
+        parts, failed, total = [], [], collections.Counter()
         api.ChemistryData.solve_chemistry = counted
         try:
             for tag, steps, run in runs:
@@ -3883,10 +3830,9 @@ class Smoke:
                     out = run()
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-                launches = launches_run()
-                total += launches
-                cloudy += cloudy_launches_run()
-                dust += dust_launches_run()
+                ran = launches_run()
+                launches = ran[NETWORK]
+                total.update(ran)
                 worst = max(answer_errors(f"examples/{tag}", out,
                                           steps).values())
                 span = "in full" if steps is None else \
@@ -3904,9 +3850,7 @@ class Smoke:
         if failed:
             raise AssertionError(f"{failed} off their answers: "
                                  + "; ".join(parts))
-        self.path_launches["examples"] = total
-        self.cloudy_path_launches["examples"] = cloudy
-        self.dust_path_launches["examples"] = dust
+        self.path_launches["examples"] = dict(total)
         return "; ".join(parts)
 
     def c_abi(self):
@@ -3971,7 +3915,7 @@ class Smoke:
                              + ", ".join(printed["cuda"]))
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        self.path_launches["c_examples"] = total
+        self.path_launches["c_examples"] = {NETWORK: total}
         return "; ".join(parts)
 
     def data_files(self):
@@ -4009,9 +3953,6 @@ class Smoke:
 
         msg, self.path_launches["flagship_from_file"] = \
             self.flagship_from_file(path)
-        self.cloudy_path_launches["flagship_from_file"] = \
-            cloudy_launches_run()
-        self.dust_path_launches["flagship_from_file"] = dust_launches_run()
         parts.append(msg)
 
         before = os.environ.get("GRACKLE_DATA_FILE")
@@ -4030,7 +3971,8 @@ class Smoke:
                 del os.environ["GRACKLE_DATA_FILE"]
             else:
                 os.environ["GRACKLE_DATA_FILE"] = before
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         worst = max(answer_errors("examples/cooling_rate_chem1",
                                   out).values())
         parts.append(f"cooling_rate chemistry 1 from GRACKLE_DATA_FILE="
@@ -4038,9 +3980,7 @@ class Smoke:
                      f" max rel {worst:.2e} against its stored answer")
         if worst > ANSWER_RTOL or not launches:
             raise AssertionError("; ".join(parts))
-        self.path_launches["example_from_file"] = launches
-        self.cloudy_path_launches["example_from_file"] = cloudy_launches_run()
-        self.dust_path_launches["example_from_file"] = dust_launches_run()
+        self.path_launches["example_from_file"] = ran
         return "; ".join(parts)
 
     @staticmethod
@@ -4049,7 +3989,7 @@ class Smoke:
         its kernel launches counted from 0: its fields and per-cell
         subcycle counts must equal ``ref`` ((fields, diagnostics) of an
         earlier phase) bit for bit, one launch a subcycle.  Returns (wall
-        seconds, launches, the count of fields)."""
+        seconds, launches_run(), the count of fields)."""
         import torch
 
         torch.cuda.synchronize()
@@ -4058,20 +3998,20 @@ class Smoke:
         new_f, diag = cd.solve_chemistry(fields, DT_FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launches_run()
+        ran = launches_run()
+        launches = ran[NETWORK]
         differ = bit_differences(new_f, diag, *ref)
         if differ or launches != diag["subcycles"] or launches == 0:
             raise AssertionError(f"{what}: {launches} launches for "
                                  f"{diag['subcycles']} subcycles, differs "
                                  f"in {differ}")
-        check_dust_launches(what, cd.config, dust_launches_run(),
-                            diag["subcycles"])
-        return wall, launches, len(new_f)
+        check_dust_launches(what, cd.config, ran[DUST], diag["subcycles"])
+        return wall, ran, len(new_f)
 
     def flagship_from_file(self, path):
         """The monolithic f64 flagship initialized from the data file
         ``path``, against phase 4b (``solve_as``).  Returns (message,
-        launches)."""
+        launches_run())."""
         if getattr(self, "mono64", None) is None:
             raise AssertionError("phase 4b did not complete")
         name = os.path.basename(path)
@@ -4079,13 +4019,13 @@ class Smoke:
         cd = flagship_chem(64, "cuda", solver_compaction=0,
                            grackle_data_file=path)
         init = time.time() - t0
-        wall, launches, n_fields = self.solve_as(
+        wall, ran, n_fields = self.solve_as(
             cd, flagship_fields(cd, N_FLAGSHIP), self.mono64,
             f"flagship from {name} against phase 4b")
         return (f"f64 monolithic flagship from {name}: initialize "
-                f"{init:.3f} s, solve {wall:.3f} s, {launches} launches, "
-                f"{n_fields} fields and cell_iterations bit-identical to "
-                f"phase 4b", launches)
+                f"{init:.3f} s, solve {wall:.3f} s, {ran[NETWORK]} "
+                f"launches, {n_fields} fields and cell_iterations "
+                f"bit-identical to phase 4b", ran)
 
     def hosts(self):
         """The f64 and float libraries, then each host program of HOSTS
@@ -4175,7 +4115,7 @@ class Smoke:
                              "was not run")
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        self.path_launches["hosts"] = total
+        self.path_launches["hosts"] = {NETWORK: total}
         return "; ".join(parts)
 
 
@@ -4223,24 +4163,16 @@ class Smoke:
 
             msg, self.path_launches["flagship_from_written_file"] = \
                 self.flagship_from_file(paths["synthetic.h5"])
-            self.cloudy_path_launches["flagship_from_written_file"] = \
-                cloudy_launches_run()
-            self.dust_path_launches["flagship_from_written_file"] = \
-                dust_launches_run()
             parts.append(msg)
 
             cd = old_style_chem("cuda", 5, paths["old_style_rank5.h5"])
-            wall, launches, n_fields = self.solve_as(
+            wall, ran, n_fields = self.solve_as(
                 cd, answer_state(cd, n=N_FLAGSHIP), self.old5,
                 "old-style rank 5 from the written file against phase 4e")
-            self.path_launches["old_style_from_written_file"] = launches
-            self.cloudy_path_launches["old_style_from_written_file"] = \
-                cloudy_launches_run()
-            self.dust_path_launches["old_style_from_written_file"] = \
-                dust_launches_run()
+            self.path_launches["old_style_from_written_file"] = ran
             parts.append(f"f64 old-style rank 5, chemistry 1 from "
                          f"old_style_rank5.h5, {N_FLAGSHIP} cells: "
-                         f"{wall:.3f} s, {launches} launches, {n_fields} "
+                         f"{wall:.3f} s, {ran[NETWORK]} launches, {n_fields} "
                          f"fields and cell_iterations bit-identical to "
                          f"phase 4e (from memory)")
         finally:
@@ -4315,12 +4247,11 @@ def main() -> int:
     smoke.phase("4n stateful API replayed", smoke.stateful_replays)
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
-    smoke.kernel["launches"] = sum(smoke.path_launches.values())
-    smoke.cloudy["launches"] = sum(smoke.cloudy_path_launches.values())
-    smoke.dust["launches"] = sum(smoke.dust_path_launches.values())
+    for line, what in ((smoke.kernel, NETWORK), (smoke.cloudy, CLOUDY),
+                       (smoke.dust, DUST)):
+        line["launches"] = sum(ran.get(what, 0)
+                               for ran in smoke.path_launches.values())
     print(f"[launches] {smoke.path_launches}", flush=True)
-    print(f"[Cloudy launches] {smoke.cloudy_path_launches}", flush=True)
-    print(f"[dust launches] {smoke.dust_path_launches}", flush=True)
     print(json.dumps({"kernels": [smoke.kernel, smoke.loop, smoke.cloudy,
                                   smoke.dust]}),
           flush=True)

@@ -191,9 +191,9 @@ def solve_chemistry(handle: int, units: dict, grid: dict,
             )).reshape(-1)[sel]
     log = os.environ.get("GRACKLE_TPU_TORCH_LAUNCH_LOG")
     if log:
-        from .ops.network_kernel import count_replays
+        from .ops.network_kernel import library
 
-        count_replays(cd._require_context().device)
+        library.count_replays(cd._require_context().device)
     new_f, _ = cd.solve_chemistry(
         fields, dt, grid_dx=grid.get("grid_dx", 0.0),
         grid_shape=grid_shape, l_h2shield=l_h2,
@@ -210,11 +210,10 @@ def solve_chemistry(handle: int, units: dict, grid: dict,
         else:
             views[cname][sel] = out
     if log:
-        from .ops.network_kernel import network_update_cuda, replayed_launches
+        from .ops.network_kernel import library
 
         with open(log, "w") as fh:
-            fh.write(str(network_update_cuda.launches
-                         + replayed_launches()))
+            fh.write(str(library.executed()))
     return 1
 
 

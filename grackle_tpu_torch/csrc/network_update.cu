@@ -135,6 +135,7 @@ struct NetworkArgs {
   int compensated;            // compensated_sums
   int rt;                     // use_radiative_transfer
   int rt_hydrogen_only;       // radiative_transfer_hydrogen_only
+  int grid;                   // CTAs of the launch: the persistent grid
   const void* dt;             // full-step timestep: a double in device memory
   double tolerance;           // dtype_tolerance (retire at tolerance*dt)
   double tiny8;               // dtype floor (ops/common.py)
@@ -657,19 +658,19 @@ network_update_kernel(const __grid_constant__ NetworkArgs a) {
 
 extern "C" {
 
-// Slot counts, so the Python wrapper can check its layout against this
-// build's.
-int grackle_network_slots(int* n_in, int* n_out, int* n_scalar) {
+// Slot counts and the tile, so the Python wrapper can check its layout
+// against this build's; returns the argument struct's size.
+int grackle_network_slots(int* n_in, int* n_out, int* n_scalar, int* tile) {
   *n_in = N_IN;
   *n_out = N_OUT;
   *n_scalar = N_SCALAR;
+  *tile = TILE;
   return (int)sizeof(NetworkArgs);
 }
 
-// Once per device: the tile, the SM count and how many CTAs of each
-// kernel are resident on one SM.  Returns a CUDA error code (0 = ready).
-int grackle_network_init(int* tile, int* sms, int* ctas_f64, int* ctas_f32) {
-  *tile = TILE;
+// Once per device: the SM count and how many CTAs of each kernel are
+// resident on one SM.  Returns a CUDA error code (0 = ready).
+int grackle_network_init(int* sms, int* ctas_f64, int* ctas_f32) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -683,17 +684,17 @@ int grackle_network_init(int* tile, int* sms, int* ctas_f64, int* ctas_f32) {
   return (int)err;
 }
 
-// Launch `grid` CTAs on `stream` for float (is_double = 0) or double
+// Launch args->grid CTAs on `stream` for float (is_double = 0) or double
 // operands.  Returns cudaGetLastError() after the launch (0 = launched).
-int grackle_network_update(const NetworkArgs* args, int is_double, int grid,
+int grackle_network_update(const NetworkArgs* args, int is_double,
                            void* stream) {
   if (args->n <= 0) return 0;
-  if (grid < 1) return (int)cudaErrorInvalidValue;
+  if (args->grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    network_update_kernel<double><<<grid, TILE, 0, s>>>(*args);
+    network_update_kernel<double><<<args->grid, TILE, 0, s>>>(*args);
   } else {
-    network_update_kernel<float><<<grid, TILE, 0, s>>>(*args);
+    network_update_kernel<float><<<args->grid, TILE, 0, s>>>(*args);
   }
   return (int)cudaGetLastError();
 }

@@ -167,7 +167,9 @@ class _FixedPoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cloudy, *args):
         save_twin_args(ctx, (cloudy,), args)
-        return _fixed_point_launch(cloudy, *args)
+        launch, out = prepare_fixed_point(cloudy, *args)
+        launch()
+        return out
 
     @staticmethod
     @once_differentiable
@@ -182,7 +184,9 @@ class _Cooling(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cloudy, *args):
         save_twin_args(ctx, (cloudy,), args)
-        return _cooling_launch(cloudy, *args)
+        launch, out = prepare_cooling(cloudy, *args)
+        launch()
+        return out
 
     @staticmethod
     @once_differentiable
@@ -190,32 +194,39 @@ class _Cooling(torch.autograd.Function):
         return (None, *twin_vjp(ctx, _plain_cool.cloudy_cooling, grads))
 
 
-def _fixed_point_launch(cloudy, d, metal, e, rhoH, dom, zr, temstart,
+def prepare_fixed_point(cloudy, d, metal, e, rhoH, dom, zr, temstart,
                         gamma, utem, imetal):
+    """Check the operands of one fixed-point launch and allocate its
+    outputs.  Returns ``(launch, (tgas, mmw))``: ``launch()`` runs the
+    kernel on the current stream, writing tgas and mmw, and counts it
+    (``library``); ``launch.bytes`` is what it must move
+    (kernel_lib.Library.bind: the per-cell operands and the unit
+    scalars, not the tables, a few hundred kB read from L2)."""
     device = e.device
+    library.require_cuda(device)
     shape, (d_f, metal_f, e_f, rhoH_f), dtype = _operands(
         [d if imetal else None, metal if imetal else None, e, rhoH], device)
-    rank, dims, pars, data = _grid_fields(cloudy, {"mmw": cloudy.mmw},
-                                          device, dtype)
+    table = _grid_fields(cloudy, {"mmw": cloudy.mmw}, device, dtype)
     scalars = {"dom": _scalar(dom, "dom", device, dtype),
                "zr": _scalar(zr, "zr", device, dtype),
                "utem": _scalar(utem, "utem", device, dtype)}
     tgas, mmw = (torch.empty(shape, dtype=dtype, device=device)
                  for _ in range(2))
-    args = _args(e_f.shape[0], rank, dims, pars, data, scalars,
-                 {"density": d_f, "metal": metal_f, "energy": e_f,
-                  "rhoH": rhoH_f}, {"tgas": tgas, "mmw": mmw})
-    args.ti_max = _plain_temp.TI_MAX
-    args.imetal = int(bool(imetal))
-    args.gamma_m1 = gamma - 1.0
-    args.temstart = float(temstart)
-    library.launch("fixed_point", args, dtype, device)
-    return tgas, mmw
+    launch = _bind("fixed_point", device, dtype, table, scalars,
+                   {"density": d_f, "metal": metal_f, "energy": e_f,
+                    "rhoH": rhoH_f}, {"tgas": tgas, "mmw": mmw},
+                   ti_max=_plain_temp.TI_MAX, imetal=int(bool(imetal)),
+                   gamma_m1=gamma - 1.0, temstart=float(temstart))
+    return launch, (tgas, mmw)
 
 
-def _cooling_launch(cloudy, logtem, rhoH, metallicity, dom, zr, comp2,
+def prepare_cooling(cloudy, logtem, rhoH, metallicity, dom, zr, comp2,
                     icmbTfloor, iClHeat, iZscale):
+    """Check the operands of one cooling launch and allocate its output.
+    Returns ``(launch, edot)``, ``launch`` as
+    :func:`prepare_fixed_point`'s."""
     device = logtem.device
+    library.require_cuda(device)
     heat = iClHeat == 1 and cloudy.heating is not None
     zscale = iZscale == 1
     shape, (logtem_f, rhoH_f, z_f), dtype = _operands(
@@ -223,33 +234,37 @@ def _cooling_launch(cloudy, logtem, rhoH, metallicity, dom, zr, comp2,
     tables = {"cooling": cloudy.cooling}
     if heat:
         tables["heating"] = cloudy.heating
-    rank, dims, pars, data = _grid_fields(cloudy, tables, device, dtype)
+    table = _grid_fields(cloudy, tables, device, dtype)
     scalars = {"dom": _scalar(dom, "dom", device, dtype),
                "zr": _scalar(zr, "zr", device, dtype),
                "comp2": _scalar(comp2, "comp2", device, dtype)}
     edot = torch.empty(shape, dtype=dtype, device=device)
-    args = _args(logtem_f.shape[0], rank, dims, pars, data, scalars,
-                 {"logtem": logtem_f, "rhoH": rhoH_f, "metallicity": z_f},
-                 {"edot": edot})
-    args.icmbTfloor = int(icmbTfloor == 1)
-    args.iClHeat = int(heat)
-    args.iZscale = int(zscale)
-    library.launch("cooling", args, dtype, device)
-    return edot
+    launch = _bind("cooling", device, dtype, table, scalars,
+                   {"logtem": logtem_f, "rhoH": rhoH_f, "metallicity": z_f},
+                   {"edot": edot}, icmbTfloor=int(icmbTfloor == 1),
+                   iClHeat=int(heat), iZscale=int(zscale))
+    return launch, edot
 
 
-def _args(n, rank, dims, pars, data, scalars, ins, outs):
-    args = _CloudyArgs(n=n, rank=rank, inv_log10=1.0 / math.log(10.0))
+def _bind(entry, device, dtype, table, scalars, ins, outs, **flags):
+    """The launch of ``entry``: its argument struct from the table's grid
+    fields, the unit scalars, the per-cell operands (None where unused),
+    the outputs and ``flags``, the struct's other fields."""
+    rank, dims, pars, data = table
+    ins = {k: t for k, t in ins.items() if t is not None}
+    args = _CloudyArgs(n=next(iter(ins.values())).shape[0], rank=rank,
+                       inv_log10=1.0 / math.log(10.0), **flags)
     args.dim[:len(dims)] = dims
     args.par[:rank] = pars
     args.data[:] = data
     args.scalar[:] = [scalars[k].data_ptr() if k in scalars else None
                       for k in SCALAR_SLOTS]
-    args.inp[:] = [ins[k].data_ptr() if ins.get(k) is not None else None
+    args.inp[:] = [ins[k].data_ptr() if k in ins else None
                    for k in IN_SLOTS]
     args.out[:] = [outs[k].data_ptr() if k in outs else None
                    for k in OUT_SLOTS]
-    return args
+    return library.bind(entry, args, dtype, device,
+                        [*ins.values(), *outs.values(), *scalars.values()])
 
 
 _runs_kernel = functools.partial(runs_kernel, what="Cloudy lookup")

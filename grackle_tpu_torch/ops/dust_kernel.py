@@ -83,13 +83,18 @@ def _check(ok, what, want, got):
         raise ValueError(f"dust kernel {what}: want {want}, got {name}")
 
 
-def _launch(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
-            tdust_init):
+def prepare_launch(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
+                   tdust_init=None):
+    """Check the operands of one launch and allocate its output.  Returns
+    ``(launch, tdust)``: ``launch()`` runs the kernel on the current
+    stream, writing tdust, and counts it (``library``); ``launch.bytes``
+    is what it must move (kernel_lib.Library.bind)."""
     device, dtype, shape = tgas.device, tgas.dtype, tgas.shape
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dust kernel takes float32/float64, got {dtype}")
     _check(itmask is None, "itmask", "None (the kernel solves every cell)",
            itmask)
+    library.require_cuda(device)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dust kernel takes float32/float64, got {dtype}")
     ins = {name: _operand(t, name, shape, device, dtype)
            for name, t in (("tgas", tgas), ("nh", nh), ("gasgr", gasgr),
                            ("isrf", isrf), ("tdust_init", tdust_init))
@@ -105,8 +110,9 @@ def _launch(tgas, nh, gasgr, gamma_isrf_coef, isrf, itmask, trad,
                      trad=trad.data_ptr(), out=out.data_ptr())
     args.inp[:] = [ins[k].data_ptr() if k in ins else None
                    for k in IN_SLOTS]
-    library.launch("temperature", args, dtype, device)
-    return out
+    launch = library.bind("temperature", args, dtype, device,
+                          [*ins.values(), trad, out])
+    return launch, out
 
 
 class _DustTemperature(torch.autograd.Function):
@@ -115,7 +121,9 @@ class _DustTemperature(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         save_twin_args(ctx, (), args)
-        return _launch(*args)
+        launch, out = prepare_launch(*args)
+        launch()
+        return out
 
     @staticmethod
     @once_differentiable

@@ -7,6 +7,8 @@ A launch is counted on the host when it is issued, eager or recorded into
 a CUDA-graph capture.  Where :meth:`ReplayCounter.arm` armed the device
 before a capture, the graph also counts its launches on the device at
 every replay, so the launches that ran on the card can be read back.
+:func:`count_replays`, :func:`zero_counts`, :func:`replayed` and
+:func:`executed` do so for every library at once.
 """
 
 from __future__ import annotations
@@ -130,6 +132,11 @@ class ReplayCounter:
             count.zero_()
 
 
+#: every Library made, in the order made (the package's import makes the
+#: Cloudy, the dust and the network kernels')
+LIBRARIES = []
+
+
 class Library:
     """One kernel source with a plain C interface: built with nvcc at
     first use, loaded with ctypes, its layout checked, its entries
@@ -157,6 +164,14 @@ class Library:
         self._replays = ReplayCounter()
         self._lib = None
         self._lock = threading.Lock()
+        LIBRARIES.append(self)
+
+    def require_cuda(self, device):
+        """Raise unless ``device`` is a CUDA device: the launch helpers'
+        first check, before anything is built."""
+        if device.type != "cuda":
+            raise ValueError(f"the {self.what} needs CUDA tensors, got "
+                             f"{device}")
 
     def build(self) -> str:
         """Compile the source with nvcc (if not yet built) and return the
@@ -193,22 +208,32 @@ class Library:
                 self._lib = lib
         return self._lib
 
-    def launch(self, entry, args, dtype, device):
-        """Launch ``entry`` on the current stream of ``device`` and count
-        it: on the host, and where the launch is recorded into a capture
-        on an armed device, on the device at every replay."""
-        fn = getattr(self.load(), self.entries[entry])
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(ctypes.byref(args), int(dtype == torch.float64),
-                     ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"{self.what} {entry} launch failed: CUDA "
-                               f"error {err}")
-        self.launches[entry] += 1
-        if torch.cuda.is_current_stream_capturing():
-            self.recorded[entry] += 1
-            self._replays.record(device)
+    def bind(self, entry, args, dtype, device, operands):
+        """``entry``'s launch with ``args`` on ``device`` as a closure:
+        ``launch()`` launches it on the current stream of ``device`` and
+        counts it: on the host, and where the launch is recorded into a
+        capture on an armed device, on the device at every replay.
+        ``operands`` are the per-cell and 0-d tensors it reads and
+        writes, held as long as the closure is; ``launch.bytes`` is their
+        size, what one launch must move (each read once, each result
+        written once)."""
+        def launch():
+            fn = getattr(self.load(), self.entries[entry])
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                err = fn(ctypes.byref(args), int(dtype == torch.float64),
+                         ctypes.c_void_p(stream))
+            if err != 0:
+                raise RuntimeError(f"{self.what} {entry} launch failed: "
+                                   f"CUDA error {err}")
+            self.launches[entry] += 1
+            if torch.cuda.is_current_stream_capturing():
+                self.recorded[entry] += 1
+                self._replays.record(device)
+
+        launch.operands = operands
+        launch.bytes = sum(t.nbytes for t in operands)
+        return launch
 
     def count_replays(self, device):
         """Count on ``device`` the launches that CUDA graphs captured from
@@ -236,6 +261,31 @@ class Library:
         self.launches.clear()
         self.recorded.clear()
         self._replays.zero()
+
+
+def count_replays(device):
+    """Arm every library's replay count on ``device`` (a no-op off the
+    card).  Not inside a capture."""
+    for library in LIBRARIES:
+        library.count_replays(device)
+
+
+def zero_counts():
+    """Set every library's launch counts to 0."""
+    for library in LIBRARIES:
+        library.zero()
+
+
+def replayed() -> dict:
+    """{library.what: the launches that armed graphs replayed since the
+    counts were zeroed} for every library."""
+    return {library.what: library.replayed() for library in LIBRARIES}
+
+
+def executed() -> dict:
+    """{library.what: the launches that ran on the card since the counts
+    were zeroed} for every library."""
+    return {library.what: library.executed() for library in LIBRARIES}
 
 
 def runs_kernel(device, what) -> bool:

@@ -10,17 +10,22 @@ The kernel replaces grackle_tpu/ops/network_kernel.py
 takes every configuration that kernel takes: primordial_chemistry 0-3,
 ``compensated_sums`` and the radiative-transfer rate fields.  It is
 built at first use with ``nvcc`` for sm_90a from the source in this
-package, into ``grackle_tpu_torch/_build/`` (a shared library with a plain
-C interface, loaded with ctypes), and launched on PyTorch's current
-stream.  It is a persistent grid of CTAs, one cell a thread; this module
-picks the operands a configuration reads (:func:`input_slots`) and sizes
-the grid.  See the source's header for what bounds the kernel and why it
-is shaped as it is.
+package, into ``grackle_tpu_torch/_build/``, loaded with ctypes and
+launched on PyTorch's current stream (ops/kernel_lib.Library, with its
+EXACT_FLAGS).  It is a persistent grid of CTAs, one cell a thread; this
+module picks the operands a configuration reads (:func:`input_slots`)
+and sizes the grid.  See the source's header for what bounds the kernel
+and why it is shaped as it is.
+
+``library`` counts the launches: those issued on the host, and where its
+``count_replays`` armed the device before a capture, those that graphs
+replayed, counted on the card (ops/kernel_lib.Library).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -28,7 +33,7 @@ import torch
 
 from . import network as _plain
 from .common import as_dt, dtype_huge8, dtype_tiny8, dtype_tolerance
-from .kernel_lib import EXACT_FLAGS, PKG_DIR, ReplayCounter, compile_library
+from .kernel_lib import EXACT_FLAGS, PKG_DIR, Library, runs_kernel
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "network_update.cu")
 #: each operation rounds as the plain twin's separate PyTorch op does
@@ -94,6 +99,7 @@ class _NetworkArgs(ctypes.Structure):
         ("compensated", ctypes.c_int),
         ("rt", ctypes.c_int),
         ("rt_hydrogen_only", ctypes.c_int),
+        ("grid", ctypes.c_int),
         ("dt", ctypes.c_void_p),
         ("tolerance", ctypes.c_double),
         ("tiny8", ctypes.c_double),
@@ -107,77 +113,35 @@ class _NetworkArgs(ctypes.Structure):
     ]
 
 
-_lib = None
-_lib_lock = threading.Lock()
-#: compiler output of this process's build ("" when the library existed)
-build_log = ""
-
-
-def build() -> str:
-    """Compile csrc/network_update.cu with nvcc (if not yet built) and
-    return the library path.  Raises if nvcc fails."""
-    global build_log
-    out, log = compile_library(SOURCE, NVCC_FLAGS)
-    if log:
-        build_log = log
-    return out
-
-
-def load():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            cint_p = ctypes.POINTER(ctypes.c_int)
-            lib.grackle_network_slots.argtypes = [cint_p] * 3
-            lib.grackle_network_slots.restype = ctypes.c_int
-            lib.grackle_network_init.argtypes = [cint_p] * 4
-            lib.grackle_network_init.restype = ctypes.c_int
-            lib.grackle_network_update.argtypes = [
-                ctypes.POINTER(_NetworkArgs), ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.grackle_network_update.restype = ctypes.c_int
-            n_in, n_out, n_scalar = (ctypes.c_int() for _ in range(3))
-            size = lib.grackle_network_slots(ctypes.byref(n_in),
-                                             ctypes.byref(n_out),
-                                             ctypes.byref(n_scalar))
-            if (n_in.value, n_out.value, n_scalar.value, size) != (
-                    N_IN, N_OUT, N_SCALAR, ctypes.sizeof(_NetworkArgs)):
-                raise RuntimeError(
-                    "network kernel layout mismatch: library has "
-                    f"{n_in.value} in / {n_out.value} out / "
-                    f"{n_scalar.value} scalar slots and a {size}-byte "
-                    f"argument struct, the wrapper {N_IN} / {N_OUT} / "
-                    f"{N_SCALAR} / {ctypes.sizeof(_NetworkArgs)}"
-                )
-            _lib = lib
-    return _lib
-
+library = Library(
+    "network kernel", SOURCE, NVCC_FLAGS, _NetworkArgs,
+    "grackle_network_slots",
+    {"in slots": N_IN, "out slots": N_OUT, "scalar slots": N_SCALAR,
+     "tile": TILE},
+    {"update": "grackle_network_update"})
 
 #: per device index: (SMs, CTAs per SM of the float32 and the float64
 #: kernel)
 _devices: dict = {}
+_devices_lock = threading.Lock()
 
 
-def _device_limits(lib, index):
+def _device_limits(index):
     """The SM count of one device and the resident CTAs per SM of each
-    kernel; queried once per device, under the library's lock (host
-    threads may launch at once)."""
-    with _lib_lock:
+    kernel; queried once per device (host threads may launch at once)."""
+    lib = library.load()
+    with _devices_lock:
         if index not in _devices:
-            vals = [ctypes.c_int() for _ in range(4)]
+            vals = [ctypes.c_int() for _ in range(3)]
+            init = lib.grackle_network_init
+            init.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
             with torch.cuda.device(index):
-                err = lib.grackle_network_init(*map(ctypes.byref, vals))
-            tile, sms, ctas64, ctas32 = (v.value for v in vals)
+                err = init(*map(ctypes.byref, vals))
+            sms, ctas64, ctas32 = (v.value for v in vals)
             if err != 0 or min(ctas64, ctas32) < 1:
                 raise RuntimeError(f"network kernel set-up failed: CUDA "
                                    f"error {err}, {ctas64}/{ctas32} CTAs "
                                    f"per SM")
-            if tile != TILE:
-                raise RuntimeError(f"network kernel layout mismatch: "
-                                   f"library tiles {tile} cells, the "
-                                   f"wrapper {TILE}")
             _devices[index] = (sms, ctas32, ctas64)
         return _devices[index]
 
@@ -236,10 +200,11 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     """Check the operands of one network-region launch, allocate its
     outputs and size its grid.  Returns ``(launch, result)``: ``launch()``
     runs the kernel on the current stream, writing ``result`` (the carry
-    dict ``network_update`` returns), and counts nothing.
+    dict ``network_update`` returns), and counts the launch (``library``).
     ``launch.bytes`` is what one launch must move, each operand read once
-    and each result written once; ``launch.grid`` the CTAs and
-    ``launch.ctas_per_sm`` how many are resident on one SM.  Every tensor
+    and each result written once (kernel_lib.Library.bind);
+    ``launch.grid`` the CTAs and ``launch.ctas_per_sm`` how many are
+    resident on one SM.  Every tensor
     must be a contiguous [N] CUDA tensor of one device, at any offset;
     the float operands share one dtype (float32 or float64).  ``us.dom``,
     ``us.chunit`` and the shields' ``k27`` are 0-d tensors of that dtype
@@ -250,15 +215,12 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     compensated = cfg.compensated_sums == 1
     ref = f["density"]
     dtype, device, n = ref.dtype, ref.device, ref.shape[0]
-    if device.type != "cuda":
-        raise ValueError(f"network_update_cuda needs CUDA tensors, got "
-                         f"{device}")
+    library.require_cuda(device)
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"network kernel takes float32/float64, got {dtype}")
-    moved = 0
+    operands = []
 
     def check(t, name, want):
-        nonlocal moved
         if (not isinstance(t, torch.Tensor) or t.device != device
                 or t.dtype != want or t.shape != (n,)
                 or not t.is_contiguous()):
@@ -268,7 +230,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise ValueError(
                 f"network kernel operand {name}: want a contiguous {want} "
                 f"[{n}] tensor on {device}, got {got}")
-        moved += t.element_size() * n
+        operands.append(t)
         return t.data_ptr()
 
     ptrs = [None] * N_IN
@@ -290,12 +252,10 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     for j, name in enumerate(OUT_CARRY_SLOTS):
         if name in carry_out:
             optrs[len(OUT_FIELD_SLOTS) + j] = carry_out[name].data_ptr()
-    moved += sum(t.element_size() * n for t in
-                 list(fields_out.values()) + list(carry_out.values()))
     # the kernel reads dt and the scalars from device memory (a graph
     # replays with new ones)
     dt = as_dt(dt, ref)
-    moved += dt.element_size()
+    operands += [*fields_out.values(), *carry_out.values(), dt]
     scalars = {"dom": us.dom, "chunit": us.chunit}
     if ispecies > 0:
         scalars["k27"] = rs.shields["k27"]
@@ -308,14 +268,12 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
             raise ValueError(f"network kernel scalar {name}: want a 0-d "
                              f"{dtype} tensor on {device}, got {got}")
         sptrs[SCALAR_SLOTS.index(name)] = t.data_ptr()
-        moved += t.element_size()
+        operands.append(t)
 
-    lib = load()
-    is_double = int(dtype == torch.float64)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    sms, *ctas = _device_limits(lib, index)
-    ctas_per_sm = ctas[is_double]
+    sms, *ctas = _device_limits(index)
+    ctas_per_sm = ctas[int(dtype == torch.float64)]
     grid = max(1, min(-(-n // TILE), ctas_per_sm * sms))
 
     tolerance = dtype_tolerance(dtype)
@@ -328,7 +286,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
         compensated=int(compensated),
         rt=int(cfg.use_radiative_transfer == 1),
         rt_hydrogen_only=int(cfg.radiative_transfer_hydrogen_only),
-        dt=dt.data_ptr(), tolerance=tolerance,
+        grid=grid, dt=dt.data_ptr(), tolerance=tolerance,
         tiny8=dtype_tiny8(dtype), huge8=dtype_huge8(dtype),
         acc=float(cfg.subcycle_accuracy),
         gamma_m1=cfg.Gamma - 1.0,
@@ -338,20 +296,7 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     args.inp[:] = ptrs
     args.out[:] = optrs
 
-    def launch():
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.grackle_network_update(
-                ctypes.byref(args), is_double, grid,
-                ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"network kernel launch failed: CUDA error "
-                               f"{err}")
-
-    # the kernel reads these at every launch
-    launch.dt = dt
-    launch.scalars = scalars
-    launch.bytes = moved
+    launch = library.bind("update", args, dtype, device, operands)
     launch.grid = grid
     launch.ctas_per_sm = ctas_per_sm
     return launch, dict(fields=fields_out, **carry_out)
@@ -359,54 +304,20 @@ def prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
 
 def network_update_cuda(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     """ops/network.py ``network_update`` as one CUDA launch; same
-    arguments, same returned carry.  Counts each launch: an eager one in
-    ``network_update_cuda.launches``; one recorded into a CUDA graph, on
-    the device at every replay, where :func:`count_replays` armed a
-    counter for the device before the capture."""
+    arguments, same returned carry.  ``library`` counts the launch."""
     launch, result = prepare_launch(cfg, us, dt, f, rs, cool_v, carry_v,
                                     h2_limit)
     launch()
-    if torch.cuda.is_current_stream_capturing():
-        _replays.record(launch.dt.device)
-    else:
-        network_update_cuda.launches += 1
     return result
 
 
-network_update_cuda.launches = 0
-
-
-_replays = ReplayCounter()
-
-
-def count_replays(device):
-    """Count on ``device`` the network launches that CUDA graphs captured
-    from now on make when they replay (graphs captured before are not
-    counted); a no-op off the card and where the device already counts.
-    Not inside a capture."""
-    _replays.arm(device)
-
-
-def replayed_launches() -> int:
-    """The network launches that graphs replayed since the counts were
-    armed or zeroed, summed over the devices (reads them on the host)."""
-    return _replays.total()
-
-
-def zero_launch_counts():
-    """Set the host count and every device's replay count to 0."""
-    network_update_cuda.launches = 0
-    _replays.zero()
+_runs_kernel = functools.partial(runs_kernel, what="network region")
 
 
 def network_update(cfg, us, dt, f, rs, cool_v, carry_v, h2_limit):
     """The network region for one subcycle: the CUDA kernel for CUDA
     tensors, the plain twin (ops/network.py) for CPU tensors."""
-    device = f["density"].device
-    if device.type == "cuda":
-        return network_update_cuda(cfg, us, dt, f, rs, cool_v, carry_v,
-                                   h2_limit)
-    if device.type == "cpu":
-        return _plain.network_update(cfg, us, dt, f, rs, cool_v, carry_v,
-                                     h2_limit)
-    raise ValueError(f"no network region for device {device}")
+    args = (cfg, us, dt, f, rs, cool_v, carry_v, h2_limit)
+    if _runs_kernel(f["density"].device):
+        return network_update_cuda(*args)
+    return _plain.network_update(*args)

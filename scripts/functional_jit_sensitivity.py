@@ -78,17 +78,17 @@ def card_step() -> int:
     import torch
 
     import chip_smoke
-    from grackle_tpu_torch.ops.network_kernel import network_update_cuda
+    from grackle_tpu_torch.ops.network_kernel import library
 
     if not torch.cuda.is_available():
         print("functional_jit_sensitivity: --card needs a CUDA device",
               file=sys.stderr)
         return 2
-    network_update_cuda.launches = 0
+    library.zero()
     t0 = time.time()
     out = chip_smoke.functional_jit_answer("cuda", max_iterations=None)
     wall = time.time() - t0
-    subcycles = network_update_cuda.launches
+    subcycles = library.executed()
     temperature = out["temperature"][0]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "wall_s": wall,

@@ -1,4 +1,4 @@
-"""The Cloudy kernels' control flow, layout and routing, on the CPU.
+"""The Cloudy kernels' control flow and backward, on the CPU.
 
 csrc/cloudy_interp.cu runs only on the card, where chip_smoke.py phase 2c
 holds it to its twins bit for bit.  Here:
@@ -8,20 +8,16 @@ holds it to its twins bit for bit.  Here:
   masked block sweep (ops/tabulated_temp.py) bit for bit in f64, with and
   without the metal correction, on a table where about half of the cells
   reach TI_MAX;
-- the ctypes argument struct and slot lists of ops/cloudy_kernel.py
-  mirror the source's, field for field;
-- CPU tensors run the twins and launch nothing, a solve included; CUDA
-  tensors the kernels;
+- CPU tensors run the twins and launch nothing, a solve included (the
+  struct, slots, flags and routing of every kernel:
+  tests/test_torch_kernel_lib.py);
 - a launch's backward is the twin's: with the launch stood in for by the
   twin on CPU tensors, the gradients through the autograd functions are
   the twin's own, bit for bit.
 """
 
 import collections
-import ctypes
 import math
-import os
-import re
 
 import pytest
 import torch
@@ -114,52 +110,6 @@ def test_per_cell_loop_equals_masked_sweep(tabulated, rank, imetal):
     assert 0 < stuck < N_CELLS
 
 
-def _source():
-    with open(cloudy_kernel.SOURCE) as fh:
-        return fh.read()
-
-
-_CTYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
-           "double": ctypes.c_double, "const void*": ctypes.c_void_p,
-           "void*": ctypes.c_void_p}
-
-
-def test_args_struct_mirrors_the_source():
-    src = _source()
-    enums = {}
-    for body in re.findall(r"enum \w+ \{([^}]*)\}", src):
-        names = [n.strip() for n in body.split(",") if n.strip()]
-        enums[names[-1]] = len(names) - 1
-        enums.update({n: i for i, n in enumerate(names)})
-    struct = re.search(r"struct CloudyArgs \{(.*?)\};", src, re.S).group(1)
-    fields = []
-    for line in struct.splitlines():
-        m = re.match(r"\s*((?:const )?[a-z ]+?\*?)\s+(\w+)(?:\[(\w+)\])?;",
-                     line)
-        if m:
-            ctype, name, count = m.groups()
-            typ = _CTYPES[ctype]
-            if count:
-                typ = typ * int(enums.get(count, count))
-            fields.append((name, typ))
-    want = [(name if name != "inp" else "in", typ)
-            for name, typ in cloudy_kernel._CloudyArgs._fields_]
-    assert [n for n, _ in fields] == [n for n, _ in want]
-    for (name, got), (_, typ) in zip(fields, want):
-        assert ctypes.sizeof(got) == ctypes.sizeof(typ), name
-        assert getattr(got, "_type_", got) == getattr(typ, "_type_", typ), \
-            name
-    # the slot lists in the order of the enums
-    for prefix, slots in (("I_", cloudy_kernel.IN_SLOTS),
-                          ("O_", cloudy_kernel.OUT_SLOTS),
-                          ("S_", cloudy_kernel.SCALAR_SLOTS),
-                          ("D_", cloudy_kernel.DATA_SLOTS)):
-        assert [enums[prefix + name] for name in slots] == \
-            list(range(len(slots)))
-    assert re.search(r"constexpr int BLOCK = (\d+);", src).group(1) == \
-        str(cloudy_kernel.BLOCK)
-
-
 def test_cpu_runs_the_twins(tabulated, monkeypatch):
     """The routers on CPU tensors return the twins' results and launch
     nothing; a tabulated solve on the CPU goes through the twins'
@@ -194,16 +144,6 @@ def test_cpu_runs_the_twins(tabulated, monkeypatch):
     assert cloudy_kernel.library.issued() == 0
 
 
-def test_routing():
-    """CPU tensors run the twin; CUDA tensors the kernel, with or without
-    grad (a launch's backward is the twin's); other devices raise."""
-    assert not cloudy_kernel._runs_kernel(torch.device("cpu"))
-    assert cloudy_kernel._runs_kernel(torch.device("cuda"))
-    assert cloudy_kernel._runs_kernel(torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="device meta"):
-        cloudy_kernel._runs_kernel(torch.device("meta"))
-
-
 @pytest.mark.parametrize("entry", ["fixed_point", "cooling"])
 def test_backward_is_the_twins(tabulated, monkeypatch, entry):
     """The autograd function around each launch, with the launch stood in
@@ -227,11 +167,11 @@ def test_backward_is_the_twins(tabulated, monkeypatch, entry):
                 us.zr, us.comp2, 1, 1, 1]
         wrt = (1, 2, 3)
 
-    def launch(*a):
+    def prepare(*a):
         with torch.no_grad():
-            return twin(*a)
+            return (lambda: None), twin(*a)
 
-    monkeypatch.setattr(cloudy_kernel, f"_{entry}_launch", launch)
+    monkeypatch.setattr(cloudy_kernel, f"prepare_{entry}", prepare)
     grads = []
     for fn in (kern, twin):
         xs = list(args)
@@ -251,9 +191,3 @@ def test_backward_is_the_twins(tabulated, monkeypatch, entry):
     out = kern(*args)
     assert all(not o.requires_grad for o in
                (out if isinstance(out, tuple) else (out,)))
-
-
-def test_source_exists_beside_the_wrapper():
-    assert os.path.isfile(cloudy_kernel.SOURCE)
-    assert "-fmad=true" in cloudy_kernel.NVCC_FLAGS
-    assert "-fmad=false" not in cloudy_kernel.NVCC_FLAGS

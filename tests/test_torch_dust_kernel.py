@@ -1,5 +1,5 @@
-"""The dust temperature kernel's control flow, layout and routing, on the
-CPU.
+"""The dust temperature kernel's control flow, constants and backward,
+on the CPU.
 
 csrc/dust_temp.cu runs only on the card, where chip_smoke.py phase 2d
 holds it to its twin bit for bit.  Here:
@@ -12,19 +12,17 @@ holds it to its twin bit for bit.  Here:
   above T_SUBL, colder than the CMB, with warm starts that are taken,
   rejected, bracket the root or do not, and cells on which Newton
   reaches ITMAX;
-- the ctypes argument struct and slot lists of ops/dust_kernel.py mirror
-  the source's, field for field;
-- CPU tensors run the twin and launch nothing, a solve included; CUDA
-  tensors the kernel, which never falls back to the twin and refuses an
-  active-cell mask (it solves every cell);
+- the source's solve constants are the twin's;
+- CPU tensors run the twin and launch nothing, a solve included; the
+  launch refuses an active-cell mask (it solves every cell); the
+  struct, slots, flags and routing of every kernel:
+  tests/test_torch_kernel_lib.py;
 - a launch's backward is the twin's: with the launch stood in for by the
   twin on CPU tensors, the gradients through the autograd function are
   the twin's own, bit for bit.
 """
 
 import collections
-import ctypes
-import os
 import re
 
 import numpy as np
@@ -203,46 +201,10 @@ def test_per_cell_loop_equals_masked_sweep(flagship_calls, dtype):
     assert any(0 < n < dt.ITMAX for n, _, _ in both)
 
 
-def _source():
+def test_solve_constants_are_the_twins():
+    """The source's Newton and bisection constants are the twin's."""
     with open(dust_kernel.SOURCE) as fh:
-        return fh.read()
-
-
-_CTYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
-           "double": ctypes.c_double, "const void*": ctypes.c_void_p,
-           "void*": ctypes.c_void_p}
-
-
-def test_args_struct_mirrors_the_source():
-    src = _source()
-    enums = {}
-    for body in re.findall(r"enum \w+ \{([^}]*)\}", src):
-        names = [n.strip() for n in body.split(",") if n.strip()]
-        enums[names[-1]] = len(names) - 1
-        enums.update({n: i for i, n in enumerate(names)})
-    struct = re.search(r"struct DustArgs \{(.*?)\};", src, re.S).group(1)
-    fields = []
-    for line in struct.splitlines():
-        m = re.match(r"\s*((?:const )?[a-z ]+?\*?)\s+(\w+)(?:\[(\w+)\])?;",
-                     line)
-        if m:
-            ctype, name, count = m.groups()
-            typ = _CTYPES[ctype]
-            if count:
-                typ = typ * int(enums.get(count, count))
-            fields.append((name, typ))
-    want = [(name if name != "inp" else "in", typ)
-            for name, typ in dust_kernel._DustArgs._fields_]
-    assert [n for n, _ in fields] == [n for n, _ in want]
-    for (name, got), (_, typ) in zip(fields, want):
-        assert ctypes.sizeof(got) == ctypes.sizeof(typ), name
-        assert getattr(got, "_type_", got) == getattr(typ, "_type_", typ), \
-            name
-    assert [enums["I_" + name] for name in dust_kernel.IN_SLOTS] == \
-        list(range(len(dust_kernel.IN_SLOTS)))
-    assert re.search(r"constexpr int BLOCK = (\d+);", src).group(1) == \
-        str(dust_kernel.BLOCK)
-    # the solve's constants are the twin's
+        src = fh.read()
     for name in ("T_SUBL", "KGR1", "KGR200", "TOL", "BI_TOL", "MINPERT",
                  "ITMAX", "BI_ITMAX", "PERT_I"):
         value = re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
@@ -264,34 +226,14 @@ def test_cpu_runs_the_twin(flagship_calls, monkeypatch):
     assert dust_kernel.library.issued() == 0
 
 
-def test_routing_never_falls_back(flagship_calls, monkeypatch):
-    """CPU tensors run the twin; CUDA tensors the kernel (other devices
-    raise); where the launch fails the router raises and the twin is
-    not called.  The launch refuses an active-cell mask before it
-    touches the card."""
-    assert not dust_kernel._runs_kernel(torch.device("cpu"))
-    assert dust_kernel._runs_kernel(torch.device("cuda"))
-    assert dust_kernel._runs_kernel(torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="device meta"):
-        dust_kernel._runs_kernel(torch.device("meta"))
-
-    def failed(*_):
-        raise RuntimeError("dust kernel launch failed: CUDA error 1")
-
-    def twin(*_, **__):
-        raise AssertionError("the twin ran")
-
+def test_refuses_an_active_cell_mask(flagship_calls):
+    """The kernel solves every cell: the launch refuses an active-cell
+    mask before it checks the device or builds anything."""
     args, init = flagship_calls[LATER_CALL]
     mask = torch.ones_like(args[0], dtype=torch.bool)
     with pytest.raises(ValueError, match="itmask"):
         dust_kernel.dust_temperature_cuda(*args[:5], mask, *args[6:],
                                           tdust_init=init)
-
-    monkeypatch.setattr(dust_kernel, "_runs_kernel", lambda device: True)
-    monkeypatch.setattr(dust_kernel, "_launch", failed)
-    monkeypatch.setattr(dust_kernel, "calc_tdust_1d", twin)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        dust_kernel.dust_temperature(*args, tdust_init=init)
 
 
 def test_backward_is_the_twins(flagship_calls, monkeypatch):
@@ -306,11 +248,11 @@ def test_backward_is_the_twins(flagship_calls, monkeypatch):
     args = [tgas, nh, gasgr, flagship[3], isrf, None, flagship[6], init]
     wrt = (0, 1, 2, 4, 7)
 
-    def launch(*a):
+    def prepare(*a):
         with torch.no_grad():
-            return dt.calc_tdust_1d(*a)
+            return (lambda: None), dt.calc_tdust_1d(*a)
 
-    monkeypatch.setattr(dust_kernel, "_launch", launch)
+    monkeypatch.setattr(dust_kernel, "prepare_launch", prepare)
     runs = []
     for fn in (dust_kernel.dust_temperature_cuda, dt.calc_tdust_1d):
         xs = list(args)
@@ -326,11 +268,3 @@ def test_backward_is_the_twins(flagship_calls, monkeypatch):
     assert all(g is not None and chip_smoke.same_bits(g, w)
                for g, w in zip(got, want))
     assert not dust_kernel.dust_temperature_cuda(*args).requires_grad
-
-
-def test_source_exists_beside_the_wrapper():
-    assert os.path.isfile(dust_kernel.SOURCE)
-    assert os.path.dirname(dust_kernel.SOURCE) == os.path.join(
-        os.path.dirname(os.path.dirname(dust_kernel.__file__)), "csrc")
-    assert "-fmad=true" in dust_kernel.NVCC_FLAGS
-    assert "-fmad=false" not in dust_kernel.NVCC_FLAGS

@@ -1,7 +1,8 @@
 """grackle_tpu_torch's network region and the layers that feed it, against
 grackle_tpu: the plain twin ``ops/network.network_update`` (which the CUDA
 kernel is held to on the card), ``lookup_cool_rates``, ``cool1d_multi``
-and ``calc_tdust_1d``, plus the kernel wrapper's routing on CPU tensors.
+and ``calc_tdust_1d``, plus the operand slots each configuration's
+kernel launch reads.
 
 Inputs are made with numpy from a seed.  The network inputs are captured
 from a few port subcycles of that state, turned back into numpy, and fed
@@ -325,97 +326,6 @@ def test_calc_tdust_1d_matches(dust_contexts, monkeypatch):
         assert torch.equal(
             pdust.calc_tdust_1d(*args, tdust_init=tdust_init), got)
         monkeypatch.undo()
-
-
-def test_kernel_wrapper_routes_cpu_tensors_to_twin():
-    """network_kernel.network_update takes the twin for CPU tensors and
-    counts no launch; network_update_cuda refuses CPU tensors.  The
-    kernel takes every option the Pallas kernel takes, so none of them
-    is refused as unsupported: each reaches the device check."""
-    cd = port_chem(64, **CASES["chem2"])
-    cfg = cd.context.config
-    inp = capture(cd, state(cd, n=16), 1.0e-4, (0,))[0]
-    args = network_args(cfg, inp, torch.from_numpy)
-    before = network_kernel.network_update_cuda.launches
-    routed = flat(network_kernel.network_update(*args))
-    twin = flat(pnetwork.network_update(*args))
-    assert network_kernel.network_update_cuda.launches == before
-    for name in twin:
-        np.testing.assert_array_equal(routed[name], twin[name])
-    with pytest.raises(ValueError, match="CUDA"):
-        network_kernel.network_update_cuda(*args)
-    import dataclasses
-
-    for option in ("compensated_sums", "use_radiative_transfer",
-                   "radiative_transfer_hydrogen_only"):
-        other = dataclasses.replace(cfg, **{option: 1})
-        with pytest.raises(ValueError, match="CUDA"):
-            network_kernel.network_update_cuda(other, *args[1:])
-    assert network_kernel.network_update_cuda.launches == before
-
-
-def test_kernel_layout_matches_source():
-    """The wrapper's operand slots are the source's enums, in order, and
-    the build flags keep IEEE arithmetic (no FMA contraction, no fast
-    math)."""
-    import ctypes
-    import re
-
-    with open(network_kernel.SOURCE) as fh:
-        src = fh.read()
-
-    def enum(name):
-        body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
-        body = re.sub(r"//[^\n]*", "", body)
-        return [s.strip() for s in body.split(",") if s.strip()]
-
-    ins = enum("In")
-    outs = enum("Out")
-    scalars = enum("Scalar")
-    nk = network_kernel
-    assert ins[-1] == "N_IN" and outs[-1] == "N_OUT"
-    assert len(ins) - 1 == nk.N_IN and len(outs) - 1 == nk.N_OUT
-    # the device scalars, read through pointers into the scalar block
-    assert scalars == [f"S_{s}" for s in nk.SCALAR_SLOTS] + ["N_SCALAR"]
-    assert len(scalars) - 1 == nk.N_SCALAR
-    assert [s[2:] for s in ins[:len(nk.FIELD_SLOTS)]] == nk.FIELD_SLOTS
-    # every input slot; the source names the shield slots s24.. and the
-    # cooling results' tgasold/tdust cool_*
-    renamed = {f"s{k[1:]}": k for k in nk.SHIELD_SLOTS}
-    renamed.update(cool_tgasold="tgasold", cool_tdust="tdust")
-    assert [renamed.get(s[2:], s[2:]) for s in ins[:-1]] == nk.IN_SLOTS
-    assert [s[2:] for s in outs[:len(nk.OUT_FIELD_SLOTS)]] == \
-        nk.OUT_FIELD_SLOTS
-    assert [s[2:] for s in outs[len(nk.OUT_FIELD_SLOTS):-1]] == \
-        nk.OUT_CARRY_SLOTS
-    # NetworkArgs field for field; it stays under the 4 KB kernel
-    # parameter limit
-    body = re.search(r"struct NetworkArgs \{(.*?)\};", src, re.S).group(1)
-    body = re.sub(r"//[^\n]*", "", body)
-    ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
-             "double": ctypes.c_double, "const void*": ctypes.c_void_p,
-             "void*": ctypes.c_void_p}
-    dims = {"N_IN": nk.N_IN, "N_OUT": nk.N_OUT, "N_SCALAR": nk.N_SCALAR}
-    fields = []
-    for decl in filter(None, (d.strip() for d in body.split(";"))):
-        kind, names = re.match(r"(const void\*|void\*|long long|int|double)"
-                               r"\s+(.*)", decl).groups()
-        for name in (x.strip() for x in names.split(",")):
-            arr = re.fullmatch(r"(\w+)\[(\w+)\]", name)
-            fields.append((arr.group(1), (ctype[kind], dims[arr.group(2)]))
-                          if arr else (name, ctype[kind]))
-
-    def sig(t):
-        return (t._type_, t._length_) if hasattr(t, "_length_") else t
-
-    assert fields == [("in" if name == "inp" else name, sig(t))
-                      for name, t in nk._NetworkArgs._fields_]
-    assert ctypes.sizeof(nk._NetworkArgs) < 4096
-    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) \
-        == nk.TILE and nk.TILE % 32 == 0
-    assert "-fmad=false" in nk.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in nk.NVCC_FLAGS
-    assert not any("fast_math" in f for f in nk.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("precision", [64, 32])
