@@ -19,8 +19,8 @@ body.  Phases:
 0. device: the card's name and power limit (nvidia-smi), torch and its
    CUDA, nvcc and the driver;
 1. build: nvcc of csrc/network_update.cu, csrc/graph_loop.cu,
-   csrc/cloudy_interp.cu and csrc/dust_temp.cu, started together, with
-   their build seconds;
+   csrc/cloudy_interp.cu, csrc/dust_temp.cu and csrc/rate_lookup.cu,
+   started together, with their build seconds;
 2. kernel vs twin: the network-region inputs of the flagship state at the
    first and at a later subcycle, f64 and f32, at every cell and at the
    compacted path's tile and batch widths, then at the batch width plus
@@ -62,6 +62,27 @@ body.  Phases:
    changing a_values bit-identical to the uncached body; the bare
    launch's device time beside its bound and the captured twin's replay
    time;
+2e. the rate lookup kernel (csrc/rate_lookup.cu) against its twin
+   (lookup_cool_rates, then the H2-equilibrium limit), bit for bit, f64
+   and f32: on the lookups of the first subcycle and of a later one of a
+   12-species state with dust, metal cooling and the UVB at 4,096 cells,
+   a quarter of them moved to the rarer branches, under every
+   combination of chemistry 1 to 3, dust on and off, three_body_rate 0
+   and 1, H2_self_shielding 0 to 3, H2_custom_shielding, the four
+   self_shielding_method values and radiative transfer on and off; at
+   the main path's widths (4,096, 81,920 and 1,048,576 cells), the
+   lookups of the first subcycle and of a later one of the first pool
+   states of the benchmark cells chem3_dust.grid1m and
+   chem2_uvb_shield.grid1m_z3 under their own flags; a
+   call whose input requires grad (one launch, the twin's gradient); the
+   stateful calls of the benchmark cell chem2_uvb_shield.grid1m_z3's
+   configuration at 4,096 cells, one rate launch a subcycle body and a
+   subcycle run, the launch and its replay count the captured body's
+   only rate nodes, replays at
+   a_values with other photo rates bit-identical to the uncached body;
+   the bare launch's device time at 81,920 and 1,048,576 cells of
+   chem3_dust.grid1m's later subcycle beside its bound and the captured
+   twin's replay time;
 3. stored answers: every workload of tests/answer_workloads.py but
    rate_tables (tabulated, 6species, 9species_shield, 12species_dust on
    32 cells; grid_full on its 32^3 grid with ghost zones), every key,
@@ -179,15 +200,17 @@ body.  Phases:
    launch of the process, and with it phases 3 to 4e.
 
 Each phase prints one line (4m and 4n one for each run).  Then one JSON
-line lists the kernels (the network, the Cloudy and the dust kernels'
-launches are the sums over the runs of phases 4 f64, 4d, 4e, 4f, 4g,
-4h, 4i, 4j, 4k, 4l and 4n's stateful calls, each counted from 0 just
-before it, and 4m's replays: an eager launch counted on the host, a
+line lists the kernels (the network, the Cloudy, the dust and the rate
+kernels' launches are the sums over the runs of phases 4 f64, 4d, 4e,
+4f, 4g, 4h, 4i, 4j, 4k, 4l and 4n's stateful calls, each counted from 0
+just before it, and 4m's replays: an eager launch counted on the host, a
 launch recorded into a graph counted on the card at every replay by a
 node beside it (ops/kernel_lib.count_replays), a host program of 4i or
 4k counting its network launches through GRACKLE_TPU_TORCH_LAUNCH_LOG;
-phases 2 to 2d's direct calls are not counted; the loop kernel's are
-4m's and 4n's replays' launches, which it counts on the device), and
+each solve of these runs one rate launch a subcycle at chemistry 1 to 3
+and none at chemistry 0; phases 2 to 2e's direct calls are not counted;
+the loop kernel's are 4m's and 4n's replays' launches, which it counts
+on the device), and
 the last line is ``{"ok": true, "device": {...}}``.  Any failed phase makes the
 script exit non-zero without that line; so does a machine without CUDA or
 a directory without the grackle_tpu_torch package.  It imports neither
@@ -224,6 +247,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: the kernel libraries' names (ops/kernel_lib.Library.what): the keys of
 #: launches_run()
 NETWORK, CLOUDY, DUST = "network kernel", "Cloudy kernel", "dust kernel"
+RATES = "rate kernel"
 N_FLAGSHIP = 1_048_576
 DT_FLAGSHIP = 1.0e-4
 CAPTURE_AT = (0, 24)  # subcycles whose network inputs phase 2 replays
@@ -266,6 +290,32 @@ DUST_SEED = 2**31 + 101
 #: phase 2d: the a_values of its stateful replays (the CMB temperature
 #: the kernel reads from the call's scalar block changes with them)
 DUST_A_VALUES = (1.0, 1.0, 0.5, 0.25)
+#: phase 2e: the rate kernel's flags, every value of each branch of its
+#: twin; the kernel is held to the twin on every combination of them
+RATE_FLAGS = {
+    "primordial_chemistry": (1, 2, 3),
+    "dust_chemistry": (0, 1),
+    "three_body_rate": (0, 1),
+    "H2_self_shielding": (0, 1, 2, 3),
+    "H2_custom_shielding": (0, 1),
+    "self_shielding_method": (0, 1, 2, 3),
+    "use_radiative_transfer": (0, 1),
+}
+#: phase 2e: the cells of its state, the subcycles whose rate lookups it
+#: records, the benchmark cell of its stateful replays (the shielding's
+#: photo rates change with a_value) and their a_values
+N_RATE_CELLS = 4096
+RATE_AT = (0, 5)
+SHIELD_CELL = "chem2_uvb_shield.grid1m_z3"
+SHIELD_SEED = 2**31 + 103
+RATE_A_VALUES = (0.25, 0.25, 0.2, 0.3)
+#: phase 2e: the main path's widths (a tile, a compacted batch, the
+#: flagship), the benchmark cells at whose first pool states it holds
+#: the kernel to its twin under their own flags, and the subcycles of
+#: those states whose rate lookups it records
+RATE_WIDTHS = (4096, 81_920, N_FLAGSHIP)
+RATE_CELLS = ((DUST_CELL, DUST_SEED), (SHIELD_CELL, SHIELD_SEED))
+RATE_CELL_AT = (0, 24)
 #: phase 4c: the dt of tests/test_exact_cooling.py's exact-vs-subcycled
 #: check, where the subcycled solve takes a handful of accurate steps, and
 #: its bounds on the relative energy difference (test_exact_cooling.py:
@@ -1007,6 +1057,17 @@ def check_dust_launches(where, cfg, ran, subcycles):
                              f"{subcycles} subcycles (want {want})")
 
 
+def check_rates_launches(where, cfg, ran, subcycles):
+    """Raise unless a solve of ``subcycles`` subcycles under ``cfg`` ran
+    one rate-lookup launch a subcycle at primordial_chemistry 1 to 3, and
+    none at chemistry 0."""
+    subcycles = int(subcycles)
+    want = subcycles if cfg.primordial_chemistry > 0 else 0
+    if ran != want:
+        raise AssertionError(f"{where}: {ran} rate-lookup launches ran for "
+                             f"{subcycles} subcycles (want {want})")
+
+
 @contextlib.contextmanager
 def uncached():
     """The stateful entry points with their graph cache bypassed, as on
@@ -1320,17 +1381,16 @@ def eager_subcycles(cd, fields, dt, steps, inputs_at=(), captured=None):
             captured.append((step, inputs))
 
 
-def dust_cell_chem(precision, device="cuda"):
-    """The context of the benchmark cell DUST_CELL
-    (portbench/configs/chem3_dust.json, its synthetic tables) at
-    ``precision``, and the first state of the cell's pool drawn with
-    DUST_SEED (numpy arrays)."""
+def cell_chem(name, precision, seed, device="cuda"):
+    """The context of the benchmark cell ``name`` (its configuration and
+    synthetic tables, at its own a_value) at ``precision``, and the first
+    state of the cell's pool drawn with ``seed`` (numpy arrays)."""
     from portbench.harness import run_cell, spec
 
-    cell = spec.cell(DUST_CELL)
+    cell = spec.cell(name)
     program = run_cell.Program(cell, run_cell.make_groups(cell), device,
                                {"precision": precision})
-    return program.cd, run_cell.make_pool(cell, cell.traffic, DUST_SEED)[0]
+    return program.cd, run_cell.make_pool(cell, cell.traffic, seed)[0]
 
 
 def capture_dust_inputs(cd, fields, dt, at=DUST_AT):
@@ -1381,6 +1441,134 @@ def dust_steps(args, init):
     finally:
         dust_temp.device_while = loop
     return tuple(counts)
+
+
+def rate_chem(precision, device="cuda"):
+    """Phase 2e's context: 12 species with dust, metal cooling and the
+    UVB (so the photo rates and cross sections the shields read are not
+    zero), on the synthetic Cloudy tables, at ``precision``."""
+    return answer_chem(device, primordial_chemistry=3, metal_cooling=1,
+                       dust_chemistry=1, UVbackground=1, precision=precision)
+
+
+def rate_state(cd, n, seed=13):
+    """Phase 2e's state (numpy arrays): n_H 1e-4 to 1e12 (above and below
+    the H2-equilibrium limiter's 1e8), T 10 to 1e8 K, molecular fractions
+    1e-8 to 0.3."""
+    rng = np.random.RandomState(seed)
+    d = 10.0 ** rng.uniform(-4, 12, n)
+    fh2 = 10.0 ** rng.uniform(-8, np.log10(0.3), n)
+    f = {"density": d, "HI": 0.38 * d * (1.0 - fh2),
+         "HII": 0.38 * d * (1.0 - fh2), "HeI": 0.24 * d,
+         "HeII": 1.0e-4 * d, "HeIII": 1.0e-4 * d, "HM": 1.0e-12 * d,
+         "H2I": 0.76 * d * fh2, "H2II": 1.0e-12 * d,
+         "DI": 2.0 * 3.4e-5 * d, "DII": 1.0e-8 * d, "HDI": 1.0e-8 * d,
+         "metal": 1.0e-3 * d}
+    f["de"] = f["HII"] + f["HeII"] / 4 + f["HeIII"] / 2
+    T = 10.0 ** rng.uniform(1, 8, n)
+    f["energy"] = T / cd.temperature_units / 0.8 / (cd.Gamma - 1.0)
+    return f
+
+
+def capture_rate_inputs(cd, fields, dt, at=RATE_AT):
+    """Run the monolithic solve's first subcycles and keep the rate
+    lookup's arguments (ops/rates_kernel.rate_lookup, once a subcycle) at
+    each subcycle index in ``at``: [(step, arguments)], the per-cell
+    tensors cloned and the cooling's values the lookup reads as a
+    namespace."""
+    import types
+
+    import torch
+
+    from grackle_tpu_torch.ops import rates_kernel
+
+    calls, kept = [0], []
+    route = rates_kernel.rate_lookup
+
+    def record(cfg, tables, pr, us, f, cool, itmask, *rest):
+        if calls[0] in at:
+            cool_v = types.SimpleNamespace(**{
+                k: getattr(cool, k).clone()
+                for k in rates_kernel.COOL_SLOTS})
+            kept.append((calls[0], (
+                cfg, tables, pr, us, {k: v.clone() for k, v in f.items()},
+                cool_v, itmask.clone(), *rest)))
+        calls[0] += 1
+        return route(cfg, tables, pr, us, f, cool, itmask, *rest)
+
+    rates_kernel.rate_lookup = record
+    try:
+        eager_subcycles(cd, fields, dt, max(at) + 1)
+    finally:
+        rates_kernel.rate_lookup = route
+    if calls[0] != max(at) + 1:
+        raise AssertionError(f"{calls[0]} rate lookups in {max(at) + 1} "
+                             f"subcycles")
+    return kept
+
+
+def head_rate_args(args, n):
+    """A recorded rate lookup's arguments on its first ``n`` cells."""
+    import types
+
+    cfg, tables, pr, us, f, cool, itmask, l_h2 = args
+    cool = types.SimpleNamespace(**{k: v[:n] for k, v in vars(cool).items()})
+    return (cfg, tables, pr, us, {k: v[:n] for k, v in f.items()}, cool,
+            itmask[:n], None if l_h2 is None else l_h2[:n])
+
+
+def rate_cases(args, seed=17):
+    """Phase 2e's cases from one recorded rate lookup (``args``): the
+    inputs with a quarter of the cells moved to where the twin's rarer
+    branches run (net heating, an inactive cell, T outside the table,
+    dust above its table's end), the fields that only some options read
+    drawn, and then, for every combination of RATE_FLAGS, the
+    configuration with those flags: [(flags, arguments)]."""
+    import dataclasses
+    import itertools
+    import types
+
+    import torch
+
+    cfg, tables, pr, us, f, cool, itmask, _ = args
+    like = cool.tgas
+    n = like.shape[0]
+    rng = np.random.RandomState(seed)
+
+    def drawn(lo, hi):
+        return torch.as_tensor(10.0 ** rng.uniform(lo, hi, n),
+                               dtype=like.dtype, device=like.device)
+
+    i = torch.arange(n, device=like.device)
+    cool = types.SimpleNamespace(**vars(cool))
+    cool.edot = torch.where(i % 3 == 0, cool.edot.abs(), cool.edot)
+    cool.tgas = torch.where(i % 16 == 0, like.new_full(
+        (), 0.5 * cfg.TemperatureStart), cool.tgas)
+    cool.tgas = torch.where(i % 16 == 8, like.new_full(
+        (), 2.0 * cfg.TemperatureEnd), cool.tgas)
+    cool.tdust = torch.where(i % 8 == 3, like.new_full(
+        (), 2.0 * cfg.DustTemperatureEnd), cool.tdust)
+    itmask = itmask & (i % 5 != 4)
+    f = dict(f, RT_H2_dissociation_rate=drawn(0, 3),
+             H2_self_shielding_length=drawn(-3, 1),
+             H2_custom_shielding_factor=drawn(-3, 0))
+    l_h2 = drawn(17, 22)
+    cases = []
+    for values in itertools.product(*RATE_FLAGS.values()):
+        flags = dict(zip(RATE_FLAGS, values))
+        case = dataclasses.replace(cfg, h2_on_dust=0, **flags)
+        cases.append((flags, (case, tables, pr, us, f, cool, itmask,
+                              l_h2)))
+    return cases
+
+
+def rate_rows(cfg, out):
+    """A rate lookup's result ``(RateState, h2_limit)`` as its rows, in
+    the kernel's order (ops/rates_kernel.row_names), then k27."""
+    from grackle_tpu_torch.ops import rates_kernel
+
+    rs, h2_limit = out
+    return (*rates_kernel.rows_of(cfg, rs, h2_limit), rs.shields["k27"])
 
 
 def cloudy_tables(cd):
@@ -1712,6 +1900,15 @@ class Smoke:
             launches=None, max_abs_err=None, ms=None, plain_ms=None,
             bound_ms=None, bound_by=None, library_ms=None,
         )
+        self.rates = dict(
+            name="rate_lookup", route="cuda",
+            source="grackle_tpu_torch/csrc/rate_lookup.cu",
+            # no TPU kernel: the rate lookup and the H2-equilibrium limit
+            # are XLA gathers and elementwise ops in the JAX package
+            replaces="grackle_tpu/ops/chemistry_step.py:lookup_cool_rates",
+            launches=None, max_abs_err=None, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None,
+        )
         #: each main-path run's launches_run(), counted from 0 just
         #: before it (the host programs of 4i and 4k count only the
         #: network kernel's): each kernel line's launches are their sum
@@ -1763,7 +1960,8 @@ class Smoke:
         from concurrent.futures import ThreadPoolExecutor
 
         from grackle_tpu_torch.ops import (cloudy_kernel, dust_kernel,
-                                           graph_loop, network_kernel)
+                                           graph_loop, network_kernel,
+                                           rates_kernel)
 
         def timed(mod):
             t0 = time.time()
@@ -1771,7 +1969,7 @@ class Smoke:
             return path, time.time() - t0
 
         mods = (network_kernel.library, graph_loop, cloudy_kernel.library,
-                dust_kernel.library)
+                dust_kernel.library, rates_kernel.library)
         t0 = time.time()
         with ThreadPoolExecutor(len(mods)) as pool:
             builds = list(pool.map(timed, mods))
@@ -1785,7 +1983,8 @@ class Smoke:
             f"{name} ptxas: {' '.join(mod.build_log.split()) or '(cached)'}"
             for name, mod in (("network", network_kernel.library),
                               ("Cloudy", cloudy_kernel.library),
-                              ("dust", dust_kernel.library)))
+                              ("dust", dust_kernel.library),
+                              ("rate", rates_kernel.library)))
         return (f"built {built}, {wall:.2f} s together; the loop library's "
                 f"CUDA runtime {rt}, driver {drv}; {logs}")
 
@@ -2123,7 +2322,7 @@ class Smoke:
         checks = 0
         worst = 0.0
         for precision in (64, 32):
-            cd, state = dust_cell_chem(precision)
+            cd, state = cell_chem(DUST_CELL, precision, DUST_SEED)
             captured = capture_dust_inputs(cd, state, DT_FLAGSHIP)
             for step, args, init in captured:
                 newton, bisect = dust_steps(args, init)
@@ -2265,6 +2464,206 @@ class Smoke:
                      f"body")
         return "; ".join(parts)
 
+    def rate_kernel_vs_twin(self):
+        """The rate lookup kernel (csrc/rate_lookup.cu) against its twin
+        (ops/rates_kernel.twin: lookup_cool_rates, then the H2-equilibrium
+        limit) on the card, bit for bit, f64 and f32: on the lookups of
+        the first subcycle and of a later one of a 12-species state with
+        dust, metal cooling and the UVB at N_RATE_CELLS cells
+        (rate_state), moved by rate_cases to where the rarer branches run,
+        under every combination of RATE_FLAGS.  Then, at the main path's
+        RATE_WIDTHS, the lookups at RATE_CELL_AT of the first pool states
+        of the RATE_CELLS, under their own flags.  Then a call whose input
+        requires grad: one launch, the kernel's values, the twin's
+        gradient bit for bit.  Then the stateful calls of the benchmark
+        cell SHIELD_CELL's configuration on the first 4,096 cells of its
+        pool: one rate launch in each subcycle body, eager and capturing,
+        the captured body's rate nodes (tracing.rates_nodes_per_subcycle)
+        2 (the launch and the node that counts its replays, armed here;
+        1 in the benchmark, which counts none), and replays at the
+        RATE_A_VALUES, whose photo rates differ,
+        bit-identical to the uncached body, with one rate launch run a
+        subcycle (replays counted on the card).  The kernel's median
+        device time (f64, DUST_CELL's later subcycle) at 81,920 cells and
+        at the largest width, beside its bound, and the twin's, captured
+        into a graph and replayed; the kernel line reads the largest
+        width's.  Its launches are left out of the kernel line's count,
+        which is the main-path runs'."""
+        import torch
+
+        from grackle_tpu_torch import tracing
+        from grackle_tpu_torch.api import call_scalars
+        from grackle_tpu_torch.ops import device_loop, rates_kernel, solver
+        from grackle_tpu_torch.ops.common import block_scalars
+
+        parts, failed = [], []
+        checks, worst = 0, 0.0
+
+        def compare(where, case):
+            nonlocal checks, worst
+            got = rate_rows(case[0], rates_kernel.rate_lookup_cuda(*case))
+            want = rate_rows(case[0], rates_kernel.twin(*case))
+            bad, diff = cloudy_bit_differences(got, want)
+            checks += 1
+            worst = max(worst, diff)
+            if bad:
+                failed.append(f"{where}: {bad} differ, max abs {diff:.3e}")
+
+        # every flag combination, at N_RATE_CELLS cells
+        for precision in (64, 32):
+            cd = rate_chem(precision)
+            captured = capture_rate_inputs(
+                cd, rate_state(cd, N_RATE_CELLS), DT_FLAGSHIP)
+            for step, args in captured:
+                cases = rate_cases(args)
+                for flags, case in cases:
+                    compare(f"f{precision} subcycle {step} {flags}", case)
+            if precision == 64:
+                grad_args = captured[-1][1]
+            del cd, captured
+            torch.cuda.empty_cache()
+        swept = checks
+
+        # the main path's widths: the benchmark cells' pool states under
+        # their own flags
+        for precision in (64, 32):
+            for cell, seed in RATE_CELLS:
+                cd, state = cell_chem(cell, precision, seed)
+                captured = capture_rate_inputs(cd, state, DT_FLAGSHIP,
+                                               RATE_CELL_AT)
+                for step, args in captured:
+                    width = args[5].tgas.shape[0]
+                    if width < max(RATE_WIDTHS):
+                        raise AssertionError(f"{cell}: a pool state of "
+                                             f"{width} cells")
+                    for n in RATE_WIDTHS:
+                        compare(f"{cell} f{precision} subcycle {step} {n} "
+                                f"cells", head_rate_args(args, n))
+                if precision == 64 and cell == DUST_CELL:
+                    step, args = captured[-1]
+                    for n in RATE_WIDTHS[1:]:
+                        case = head_rate_args(args, n)
+                        launch, _ = rates_kernel.prepare_launch(
+                            case[0], case[1], *rates_kernel.operands(
+                                case[0], *case[2:8]))
+                        ms = cuda_median_ms(launch)
+                        bound = launch.bytes / HBM_BYTES_PER_S * 1e3
+                        rates_kernel.twin(*case)
+                        graph, _, stats = capture_graph(
+                            lambda: rates_kernel.twin(*case))
+                        plain_ms = cuda_median_ms(graph.replay)
+                        del graph
+                        device_loop.release_pools()
+                        parts.append(f"{cell} subcycle {step}, {n} cells: "
+                                     f"bare launch {ms:.4f} ms, bound "
+                                     f"{bound:.5f} ms; the twin captured "
+                                     f"({stats['nodes']} nodes), replayed "
+                                     f"{plain_ms:.4f} ms")
+                        if n == max(RATE_WIDTHS):
+                            self.rates.update(ms=ms, plain_ms=plain_ms,
+                                              bound_ms=bound,
+                                              bound_by="bytes")
+                del cd, state, captured
+                torch.cuda.empty_cache()
+        self.rates["max_abs_err"] = worst
+        if failed:
+            raise AssertionError(f"{len(failed)} of {checks} checks differ "
+                                 f"from the twin: " + "; ".join(failed[:8]))
+        parts.insert(0, f"{checks} kernel-vs-twin checks bit-identical "
+                        f"({swept} at {N_RATE_CELLS} cells: {len(cases)} "
+                        f"flag combinations, {len(RATE_AT)} subcycles, f64 "
+                        f"and f32; {checks - swept} at {RATE_WIDTHS} cells "
+                        f"of {len(RATE_CELLS)} bench cells' states, "
+                        f"{len(RATE_CELL_AT)} subcycles, f64 and f32)")
+
+        # a call whose input requires grad launches the kernel too, and
+        # its backward gives the twin's gradient
+        cfg, tables, pr, us, f, cool, *rest = grad_args
+        runs = []
+        for fn in (rates_kernel.rate_lookup, rates_kernel.twin):
+            x = cool.tgas.clone().requires_grad_(True)
+            cool_x = type(cool)(**dict(vars(cool), tgas=x))
+            before = rates_kernel.library.issued()
+            out = fn(cfg, tables, pr, us, f, cool_x, *rest)
+            launched = rates_kernel.library.issued() - before
+            rows = rate_rows(cfg, out)[:-1]
+            sum(r.sum() for r in rows).backward()
+            runs.append((launched, [r.detach() for r in rows], x.grad))
+        (launched, values, grad), (_, _, twin_grad) = runs
+        with torch.no_grad():
+            kernel = rate_rows(cfg, rates_kernel.rate_lookup(
+                cfg, tables, pr, us, f, cool, *rest))[:-1]
+        bad = cloudy_bit_differences(values, kernel)[0]
+        off = cloudy_bit_differences((grad,), (twin_grad,))[0]
+        if launched != 1 or bad or off:
+            raise AssertionError(
+                f"a rate lookup that requires grad: {launched} launches, "
+                f"{bad} values off the kernel's, {off} gradient elements "
+                f"off the twin's")
+        parts.append("a call whose input requires grad: one launch, the "
+                     "kernel's values, the twin's gradient bit for bit")
+
+        # the shielded cell's stateful calls: launches a subcycle body
+        # (eager and capturing), the captured body's rate nodes, and
+        # replays at changing a_values (the photo rates are read on the
+        # card)
+        cd, state = cell_chem(SHIELD_CELL, 64, SHIELD_SEED)
+        fields = device_fields({k: v[:N_CLOUDY_STATE]
+                                for k, v in state.items()})
+        graphs = cd.context.graphs
+        rates_kernel.library.count_replays(CARD_DEVICE)
+        tracing.rates_nodes = None
+        kinds, nodes, k24 = [], None, set()
+        subcycle = solver.subcycle
+        for a_value in RATE_A_VALUES:
+            cd.a_value = a_value
+            per_body = []
+
+            def counted(*a, **kw):
+                before = rates_kernel.library.issued()
+                out = subcycle(*a, **kw)
+                per_body.append(rates_kernel.library.issued() - before)
+                return out
+
+            rates_kernel.library.zero()
+            solver.subcycle = counted
+            try:
+                kind, got, _ = stateful_call(graphs, cd.solve_chemistry,
+                                             dict(fields), 1.0e-4)
+            finally:
+                solver.subcycle = subcycle
+            subcycles = int(got[1]["subcycles"])
+            ran = rates_kernel.library.executed()
+            if (per_body and set(per_body) != {1}) or ran != subcycles:
+                raise AssertionError(
+                    f"a_value {a_value}, {dict(kind)}: rate launches a "
+                    f"subcycle body {sorted(set(per_body))}, {ran} run "
+                    f"for {subcycles} subcycles")
+            if "capture" in kind:
+                nodes = tracing.rates_nodes_per_subcycle()
+            with uncached():
+                want = cd.solve_chemistry(dict(fields), 1.0e-4)
+            differ = tree_differences(got, want)
+            if differ:
+                raise AssertionError(f"a_value {a_value}: {differ} differ "
+                                     f"from the uncached body")
+            k24.add(float(block_scalars(call_scalars(cd.context,
+                                                     "cuda"))[1].k24))
+            kinds.append("/".join(sorted(kind)))
+        # the launch and, the replay count being armed, its counting node
+        if nodes != 2 or len(k24) != len(set(RATE_A_VALUES)):
+            raise AssertionError(f"rate nodes in the captured subcycle "
+                                 f"body: {nodes} (want 2); {len(k24)} "
+                                 f"photo rates k24 at a_value "
+                                 f"{RATE_A_VALUES}")
+        parts.append(f"{SHIELD_CELL} calls at a_value {RATE_A_VALUES} "
+                     f"(k24 {', '.join(f'{k:.4g}' for k in sorted(k24))}): "
+                     f"{', '.join(kinds)}, one rate launch a subcycle body "
+                     f"and a subcycle run, {nodes} rate nodes in the "
+                     f"captured body (the launch and its replay count), "
+                     f"each bit-identical to the uncached body")
+        return "; ".join(parts)
+
     def answers(self):
         """The stored answers; then the functional_jit example and the
         old-style rank-4 cooling time, each against the port's CPU run
@@ -2341,6 +2740,8 @@ class Smoke:
                     f"{diag['subcycles']} subcycles")
             check_dust_launches(f"f{precision} {kind}", cd.config,
                                 ran[DUST], diag["subcycles"])
+            check_rates_launches(f"f{precision} {kind}", cd.config,
+                                 ran[RATES], diag["subcycles"])
             if first is None:
                 first = (new_f, diag)
             elif tree_differences((new_f, diag), first):
@@ -2769,9 +3170,11 @@ class Smoke:
                                  f"subcycles, {replayed} network kernel "
                                  f"launches and {loop_launches} loop "
                                  f"kernel launches")
-        if not 0 < ran[DUST] <= replay_subcycles:
-            raise AssertionError(f"the replays ran {ran[DUST]} dust "
-                                 f"launches in {replay_subcycles} subcycles")
+        for what in (DUST, RATES):
+            if not 0 < ran[what] <= replay_subcycles:
+                raise AssertionError(f"the replays ran {ran[what]} {what} "
+                                     f"launches in {replay_subcycles} "
+                                     f"subcycles")
         self.path_launches["captured_replays"] = ran
         self.loop["launches"] = loop_launches
         parts.append(f"replays: {replayed} network kernel launches and "
@@ -2851,9 +3254,10 @@ class Smoke:
             subs = got[1]["subcycles"]
             return sum(subs) if isinstance(subs, list) else subs
 
-        def check_call(label, graphs, kind, call, args, ref, same, prev,
-                       solve=True):
-            """One stateful call, checked; returns (result, wall)."""
+        def check_call(cfg, label, graphs, kind, call, args, ref, same,
+                       prev, solve=True):
+            """One stateful call under ``cfg``, checked; returns
+            (result, wall)."""
             zero_launches()
             kinds, got, wall = stateful_call(graphs, call, *args)
             ran = launches_run()
@@ -2876,10 +3280,14 @@ class Smoke:
             if solve and launches != solve_launches(got):
                 raise AssertionError(f"{where}: {launches} launches for "
                                      f"{solve_launches(got)} subcycles")
-            # a solve with dust runs one dust launch a subcycle
+            # a solve with dust runs one dust launch a subcycle; a solve
+            # at chemistry 1 to 3 one rate-lookup launch a subcycle, and
+            # any other call none
             if solve and dust not in (0, launches):
                 raise AssertionError(f"{where}: {dust} dust launches for "
                                      f"{launches} subcycles")
+            check_rates_launches(where, cfg, ran[RATES],
+                                 launches if solve else 0)
             total.update(ran)
             return got, wall
 
@@ -2908,7 +3316,8 @@ class Smoke:
             def check():
                 with uncached():
                     ref = call(*args)
-                return check_call(f"{label}, a_value {A_VALUE_CHANGED}",
+                return check_call(cd.config,
+                                  f"{label}, a_value {A_VALUE_CHANGED}",
                                   graphs, "replay", call, args, ref, same,
                                   prev, solve)
 
@@ -2938,9 +3347,9 @@ class Smoke:
                 if tag not in refs:
                     with uncached():
                         refs[tag] = call(*inputs[tag])
-                got, wall = check_call(label, graphs, kind, call,
-                                       inputs[tag], refs[tag], same, prev,
-                                       solve)
+                got, wall = check_call(cd.config, label, graphs, kind,
+                                       call, inputs[tag], refs[tag], same,
+                                       prev, solve)
                 walls[kind].append(wall)
                 prev = (got, tree_clone(got))
             changed = changed_a_value(label, cd, graphs, call, inputs["a"],
@@ -2983,6 +3392,9 @@ class Smoke:
                         check_dust_launches(f"{label}, a_value {a_value}",
                                             cd.config, ran[DUST],
                                             solve_launches(got))
+                        check_rates_launches(f"{label}, a_value {a_value}",
+                                             cd.config, ran[RATES],
+                                             solve_launches(got))
                         total.update(ran)
                         for key, val in got[0].items():
                             if not bool(torch.isfinite(val).all()):
@@ -2992,7 +3404,8 @@ class Smoke:
                         return got, wall
                     with uncached():
                         ref = call(fields, dt)
-                    return check_call(f"{label}, a_value {a_value}",
+                    return check_call(cd.config,
+                                      f"{label}, a_value {a_value}",
                                       graphs, "replay", call, (fields, dt),
                                       ref, tree_differences, None)
 
@@ -3192,9 +3605,10 @@ class Smoke:
             kind = CALL_KINDS[min(step, 2)]
             with uncached():
                 ref = cc.solve_chemistry(fields, dt)
-            got, wall = check_call(f"cooling_cell step {step}", graphs,
-                                   kind, cc.solve_chemistry, (fields, dt),
-                                   ref, tree_differences, prev)
+            got, wall = check_call(cc.config, f"cooling_cell step {step}",
+                                   graphs, kind, cc.solve_chemistry,
+                                   (fields, dt), ref, tree_differences,
+                                   prev)
             walls[kind].append(wall)
             # the fields passed in are the last step's results
             prev = (got, tree_clone(got))
@@ -3206,7 +3620,8 @@ class Smoke:
         cc.a_value = A_VALUE_CHANGED
         with uncached():
             ref = cc.solve_chemistry(fields, dt)
-        _, a_wall = check_call(f"cooling_cell, a_value {A_VALUE_CHANGED}",
+        _, a_wall = check_call(cc.config,
+                               f"cooling_cell, a_value {A_VALUE_CHANGED}",
                                graphs, "replay", cc.solve_chemistry,
                                (fields, dt), ref, tree_differences, prev)
         cc.a_value = 1.0
@@ -3219,9 +3634,9 @@ class Smoke:
             with uncached():
                 ref = cc.solve_chemistry(cell, dt)
             for kind in ("eager", "capture"):
-                check_call(f"cooling_cell width {width}", graphs, kind,
-                           cc.solve_chemistry, (cell, dt), ref,
-                           tree_differences, None)
+                check_call(cc.config, f"cooling_cell width {width}",
+                           graphs, kind, cc.solve_chemistry, (cell, dt),
+                           ref, tree_differences, None)
         if len(graphs) != graph_cache.MAX_GRAPHS:
             raise AssertionError(f"cooling_cell: {len(graphs)} graphs after "
                                  f"{len(widths)} widths, bound "
@@ -3259,8 +3674,9 @@ class Smoke:
         call = cd.calculate_cooling_time
         with uncached():
             ref = call(fields)
-        check_call("held memory, first call", graphs, "eager", call,
-                   (fields,), ref, tree_differences, None, solve=False)
+        check_call(cd.config, "held memory, first call", graphs, "eager",
+                   call, (fields,), ref, tree_differences, None,
+                   solve=False)
         [(_, peak)] = graphs._seen.values()
         inputs = sum(v.numel() * v.element_size() for v in fields.values())
         need = graph_cache.CAPTURE_PEAKS * peak + inputs
@@ -3273,17 +3689,17 @@ class Smoke:
         left = graph_cache._free_bytes(device)
         kinds = []
         try:
-            _, wall = check_call("held memory, second call", graphs, "eager",
-                                 call, (fields,), ref, tree_differences,
-                                 None, solve=False)
+            _, wall = check_call(cd.config, "held memory, second call",
+                                 graphs, "eager", call, (fields,), ref,
+                                 tree_differences, None, solve=False)
             kinds.append(f"eager {wall:.4f} s")
         finally:
             del held
         first_capture = len(captures)
         for kind in ("capture", "replay"):
-            _, wall = check_call(f"held memory, {kind} call", graphs, kind,
-                                 call, (fields,), ref, tree_differences,
-                                 None, solve=False)
+            _, wall = check_call(cd.config, f"held memory, {kind} call",
+                                 graphs, kind, call, (fields,), ref,
+                                 tree_differences, None, solve=False)
             kinds.append(f"{kind} {wall:.4f} s")
         c = captures[first_capture]
         pools = (None if None in (c["pool"], c["body_pool"])
@@ -3389,7 +3805,8 @@ class Smoke:
                     ref = cc.solve_chemistry(cell, dt)
                 torch.cuda.synchronize()
                 plain.append(time.time() - t0)
-                _, wall = check_call(f"width cycle round {r}, {width} "
+                _, wall = check_call(cc.config,
+                                     f"width cycle round {r}, {width} "
                                      f"cells", cc.context.graphs, kind,
                                      cc.solve_chemistry, (cell, dt), ref,
                                      tree_differences, None)
@@ -3611,6 +4028,8 @@ class Smoke:
                                  f"{differ}")
         check_dust_launches("functional", cd.config, ran[DUST],
                             diag["subcycles"])
+        check_rates_launches("functional", cd.config, ran[RATES],
+                             diag["subcycles"])
         self.path_launches["functional"] = ran
         return (f"f64 make_solve_fn {wall:.3f} s ({N_FLAGSHIP / wall:.0f} "
                 f"cells/s, no warm-up; {launches} launches, "
@@ -3663,6 +4082,8 @@ class Smoke:
             raise AssertionError(msg)
         check_dust_launches("old-style", cd.config, ran[DUST],
                             diag["subcycles"])
+        check_rates_launches("old-style", cd.config, ran[RATES],
+                             diag["subcycles"])
         self.path_launches["old_style"] = ran
         self.old5 = (new_f, diag)
         return msg
@@ -3703,6 +4124,8 @@ class Smoke:
                                  f"in {differ}")
         check_dust_launches("restored", cd.config, ran[DUST],
                             diag["subcycles"])
+        check_rates_launches("restored", cd.config, ran[RATES],
+                             diag["subcycles"])
         self.path_launches["serialization"] = ran
         return (f"f64 flagship restored from {len(json.dumps(state))} bytes "
                 f"of JSON: {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s, "
@@ -3751,6 +4174,8 @@ class Smoke:
                 f"phase 4b in {differ}")
         check_dust_launches("sharded", cd.config, ran[DUST],
                             sum(diag["subcycles"]))
+        check_rates_launches("sharded", cd.config, ran[RATES],
+                             sum(diag["subcycles"]))
         self.path_launches["sharded"] = ran
         msg = (f"f64 flagship on {N_SHARDS} shards of {width} cells "
                f"({mesh[0]}): {wall:.3f} s ({N_FLAGSHIP / wall:.0f} cells/s,"
@@ -4006,6 +4431,7 @@ class Smoke:
                                  f"{diag['subcycles']} subcycles, differs "
                                  f"in {differ}")
         check_dust_launches(what, cd.config, ran[DUST], diag["subcycles"])
+        check_rates_launches(what, cd.config, ran[RATES], diag["subcycles"])
         return wall, ran, len(new_f)
 
     def flagship_from_file(self, path):
@@ -4227,6 +4653,7 @@ def main() -> int:
                 smoke.kernel_configs)
     smoke.phase("2c Cloudy kernels vs twins", smoke.cloudy_kernels)
     smoke.phase("2d dust kernel vs twin", smoke.dust_kernel_vs_twin)
+    smoke.phase("2e rate kernel vs twin", smoke.rate_kernel_vs_twin)
     smoke.phase("3 stored answers", smoke.answers)
     smoke.phase("4 flagship f64", lambda: smoke.flagship(64))
     smoke.phase("4 flagship f32", lambda: smoke.flagship(32))
@@ -4248,12 +4675,12 @@ def main() -> int:
     smoke.phase("5 torch.profiler cross-check", smoke.profiled_kernel)
     print(f"[total] {time.time() - t0:.1f} s", flush=True)
     for line, what in ((smoke.kernel, NETWORK), (smoke.cloudy, CLOUDY),
-                       (smoke.dust, DUST)):
+                       (smoke.dust, DUST), (smoke.rates, RATES)):
         line["launches"] = sum(ran.get(what, 0)
                                for ran in smoke.path_launches.values())
     print(f"[launches] {smoke.path_launches}", flush=True)
     print(json.dumps({"kernels": [smoke.kernel, smoke.loop, smoke.cloudy,
-                                  smoke.dust]}),
+                                  smoke.dust, smoke.rates]}),
           flush=True)
     if not smoke.ok or only is not None:
         return 1

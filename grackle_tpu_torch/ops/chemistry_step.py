@@ -23,13 +23,14 @@ are explicit products (``HI * HI`` for JAX's ``HI**2``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from .. import tracing
 from ..constants import kboltz, mass_h, tiny
-from .common import div_host, dtype_tiny8
+from .common import div_host, dtype_huge8, dtype_tiny8
 from .lookup import TableIndex, TableLookup, h2dust_lookup, table_index
 
 _K_NAMES_6 = ["k1", "k2", "k3", "k4", "k5", "k6", "k57", "k58"]
@@ -248,6 +249,69 @@ def lookup_cool_rates(
 
     return RateState(k=k, k13dd=k13dd, h2dust=h2dust, shields=shields,
                      ti=ti)
+
+
+def _h2_apply_mask(cool, f, us, itmask):
+    """Cells where the high-density H2 equilibrium limiter fires
+    (solve_rate_cool_g.F:592-595): rho*dom > 1e8 with net heating."""
+    return (f["density"] * us.dom > 1.0e8) & (cool.edot > 0.0) & itmask
+
+
+def _h2_limit_value(cfg, tables, rs, cool, f, us):
+    """The raw per-cell H2-equilibrium dt limit
+    (solve_rate_cool_g.F:596-643): at rho > 1e8 mh with heating, the dt
+    at which the k13/k22 equilibrium H abundance changes by ~10%.
+    Only meaningful on cells where :func:`_h2_apply_mask` holds."""
+    fh = cfg.HydrogenFractionByMass
+    d = f["density"]
+    tgas = cool.tgas
+    dlogtem = (
+        math.log(cfg.TemperatureEnd) - math.log(cfg.TemperatureStart)
+    ) / (cfg.NumberOfTemperatureBins - 1)
+    ti = rs.ti
+    # the float64 bin edges round to the solver dtype here, the width
+    # after the subtraction (lookup.table_index)
+    t1, t2 = ti.t1.to(d.dtype), ti.t2.to(d.dtype)
+    width = (ti.t2 - ti.t1).to(d.dtype)
+    k13a, k22a = tables.k13, tables.k22
+    lo13, hi13 = k13a[ti.idx], k13a[ti.idx + 1]
+    lo22, hi22 = k22a[ti.idx], k22a[ti.idx + 1]
+
+    def heq_at(eqt):
+        eqtdef = (eqt - t1) / width
+        k13_i = lo13 + (hi13 - lo13) * eqtdef
+        k22_i = lo22 + (hi22 - lo22) * eqtdef
+        return (-1.0 / (4.0 * k22_i)) * (
+            k13_i - torch.sqrt(8.0 * k13_i * k22_i * fh * d
+                               + k13_i * k13_i)
+        )
+
+    logt = torch.log(tgas)
+    eqt2 = torch.minimum(logt + 0.1 * dlogtem, t2)
+    eqt1 = torch.maximum(logt - 0.1 * dlogtem, t1)
+    heq2 = heq_at(eqt2)
+    heq1 = heq_at(eqt1)
+    dheq = (
+        torch.abs(heq2 - heq1) / (torch.exp(eqt2) - torch.exp(eqt1))
+    ) * (tgas / cool.p2d) * cool.edot
+    k13, k22 = rs.k["k13"], rs.k["k22"]
+    heq = (-1.0 / (4.0 * k22)) * (
+        k13 - torch.sqrt(8.0 * k13 * k22 * fh * d + k13 * k13)
+    )
+    return cfg.subcycle_accuracy * heq / dheq
+
+
+def h2_equilibrium_limit(cfg, tables, rs, cool, f, us, itmask):
+    """High-density H2 equilibrium timestep limit, value form: the
+    per-cell dt limit (+huge where inactive), which the network region
+    folds into its dt minimum.  Evaluated on every cell and selected with
+    ``torch.where`` (no host check of "any cell dense"): where the
+    limiter does not fire the result is +huge, exactly what the JAX
+    package's ``lax.cond`` skip returns."""
+    huge8 = dtype_huge8(f["density"].dtype)
+    apply = _h2_apply_mask(cool, f, us, itmask)
+    limit = _h2_limit_value(cfg, tables, rs, cool, f, us)
+    return torch.where(apply, limit, torch.full_like(limit, huge8))
 
 
 def rate_timestep(cfg, rs: RateState, f, us, edot, rhoH):

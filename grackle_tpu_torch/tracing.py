@@ -16,11 +16,19 @@ launch counts, ``ops/kernel_lib.Library``, are).
   node count before and after the block (ops/graph_loop.capture_nodes),
   so it costs nothing at replay and nothing on an eager call.  A
   subcycle body runs each block once, so their sum is the shielding's
-  nodes a subcycle (:func:`shield_nodes_per_subcycle`).
+  nodes a subcycle (:func:`shield_nodes_per_subcycle`).  On the card the
+  rate lookup is one launch of csrc/rate_lookup.cu, which runs neither
+  ``"rahmati"`` nor ``"h2"`` (their blocks are in its CPU twin), so
+  there the sum is the photo-heating block's alone.
 - :data:`dust_nodes`: likewise, the nodes the equilibrium dust
   temperature of ``ops/cooling.cool1d_multi`` added to the graph being
   captured, at its latest capture (None before any): one launch of
   csrc/dust_temp.cu on the card (:func:`dust_nodes_per_subcycle`).
+- :data:`rates_nodes`: likewise, the nodes that the rate lookup and the
+  H2-equilibrium limit (``ops/rates_kernel.rate_lookup`` in
+  ``ops/solver.subcycle``) added to the graph being captured, at its
+  latest capture (None before any): one launch of csrc/rate_lookup.cu on
+  the card (:func:`rates_nodes_per_subcycle`).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ class Span:
 call_scalars = Span()
 shield_nodes: dict = {}
 dust_nodes = None
+rates_nodes = None
 
 
 @contextlib.contextmanager
@@ -88,6 +97,17 @@ def dust_block(ref: torch.Tensor):
     return _nodes_added(ref, store)
 
 
+def rates_block(ref: torch.Tensor):
+    """Count the nodes of the rate lookup and the H2-equilibrium limit of
+    ``ops/solver.subcycle`` into ``rates_nodes`` (see
+    :func:`_nodes_added`)."""
+    def store(n):
+        global rates_nodes
+        rates_nodes = n
+
+    return _nodes_added(ref, store)
+
+
 def shield_nodes_per_subcycle():
     """The shielding's nodes in one captured subcycle body (the sum over
     its blocks at their latest capture); None before any capture."""
@@ -98,3 +118,10 @@ def dust_nodes_per_subcycle():
     """The dust temperature's nodes in one captured subcycle body, at its
     latest capture; None before any capture."""
     return dust_nodes
+
+
+def rates_nodes_per_subcycle():
+    """The rate lookup's and the H2-equilibrium limit's nodes in one
+    captured subcycle body, at its latest capture; None before any
+    capture."""
+    return rates_nodes

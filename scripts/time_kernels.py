@@ -33,11 +33,20 @@ idle device, median of 200).  The kernels:
   chem3_dust.grid1m's pool, at 4,096, 81,920 and 1,048,576 cells, f64
   and f32, against its twin captured into a CUDA graph and replayed (its
   nodes and the steps of its sweeps), and whether the kernel holds the
-  twin's bits.
+  twin's bits;
+- ``rates``: the rate lookup with the H2-equilibrium limit on the solve's
+  arguments at the first subcycle and at subcycle 24 of the monolithic
+  solve of the first state of the pools of chem3_dust.grid1m (12
+  species, dust, three_body_rate 0) and chem2_uvb_shield.grid1m_z3 (9
+  species, the UVB at z = 3, self_shielding_method 3, H2_self_shielding
+  3), at 4,096, 81,920 and 1,048,576 cells, f64 and f32, against its twin
+  captured into a CUDA graph and replayed (its nodes), and whether the
+  kernel holds the twin's bits.
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 scripts/time_kernels.py [--kernel network|cloudy|dust ...]
+    python3 scripts/time_kernels.py [--kernel network|cloudy|dust|rates
+        ...]
         [--root DIR]
 
 ``--root`` times the grackle_tpu_torch package of another checkout (its
@@ -79,6 +88,9 @@ GRIDS = {"25x10x121": dict(n_density=25, n_redshift=10, n_temperature=121,
          "29x26x161": dict(n_density=29, n_redshift=26, n_temperature=161,
                            z_max=15.0)}
 DUST_WIDTHS = (4096, 81_920, 1_048_576)
+#: the rate lookup's widths and subcycles
+RATE_WIDTHS = (4096, 81_920, 1_048_576)
+RATE_AT = (0, 24)
 
 
 def host_ms(fn, reps=HOST_REPS):
@@ -208,7 +220,7 @@ def time_dust(cs, emit):
 
     ptxas(dk.library)
     for precision in (64, 32):
-        cd, state = cs.dust_cell_chem(precision)
+        cd, state = cs.cell_chem(cs.DUST_CELL, precision, cs.DUST_SEED)
         captured = cs.capture_dust_inputs(cd, state, cs.DT_FLAGSHIP)
         for (step, args, init), n in itertools.product(captured,
                                                        DUST_WIDTHS):
@@ -236,8 +248,43 @@ def time_dust(cs, emit):
         del cd, state, captured
 
 
+def time_rates(cs, emit):
+    from grackle_tpu_torch.ops import device_loop
+    from grackle_tpu_torch.ops import rates_kernel as rk
+
+    ptxas(rk.library)
+    for precision, (cell, seed) in itertools.product(
+            (64, 32), ((cs.DUST_CELL, cs.DUST_SEED),
+                       (cs.SHIELD_CELL, cs.SHIELD_SEED))):
+        cd, state = cs.cell_chem(cell, precision, seed)
+        captured = cs.capture_rate_inputs(cd, state, cs.DT_FLAGSHIP,
+                                          RATE_AT)
+        for (step, args), n in itertools.product(captured, RATE_WIDTHS):
+            head = cs.head_rate_args(args, n)
+            cfg = head[0]
+
+            def twin():
+                return rk.twin(*head)
+
+            twin()
+            graph, twin_out, stats = cs.capture_graph(twin)
+            launch, _ = rk.prepare_launch(
+                cfg, head[1], *rk.operands(cfg, *head[2:8]))
+            got = rk.rate_lookup_cuda(*head)
+            bad, _ = cs.cloudy_bit_differences(
+                cs.rate_rows(cfg, got), cs.rate_rows(cfg, twin_out))
+            emit(launch, lambda: rk.rate_lookup_cuda(*head),
+                 kernel="rates", cell=cell, precision=precision,
+                 subcycle=step, cells=n,
+                 twin_replay_ms=cs.cuda_median_ms(graph.replay),
+                 twin_nodes=stats["nodes"], bit_identical=bad == 0)
+            del graph, twin_out, got
+            device_loop.release_pools()
+        del cd, state, captured
+
+
 TIMERS = {"network": time_network, "cloudy": time_cloudy,
-          "dust": time_dust}
+          "dust": time_dust, "rates": time_rates}
 
 
 def main() -> int:

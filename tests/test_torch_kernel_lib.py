@@ -1,5 +1,6 @@
 """The contract every hand-written kernel keeps with ops/kernel_lib.py, on
-the CPU, for the network, the Cloudy and the dust kernels alike.
+the CPU, for the network, the Cloudy, the dust and the rate kernels
+alike.
 
 The kernels build and run only on the card (chip_smoke.py phases 2 to
 2d hold them to their twins bit for bit).  Here, without building
@@ -11,7 +12,7 @@ anything:
   checks the slot counts and the tile or block size the source exports
   through its layout function; each entry takes Library's one signature;
 - the source sits beside the wrappers and is built for sm_90a without
-  fast math, the network kernel without FMA contraction, the other two
+  fast math, the network kernel without FMA contraction, the others
   with it;
 - CPU tensors run the twin and count no launch, a CUDA wrapper given
   CPU tensors raises, other devices raise, and CUDA tensors never fall
@@ -33,13 +34,13 @@ import chip_smoke
 from grackle_tpu_torch.api import call_scalars
 from grackle_tpu_torch.ops import cloudy_cool, cloudy_kernel, dust_kernel
 from grackle_tpu_torch.ops import kernel_lib
-from grackle_tpu_torch.ops import network, network_kernel
+from grackle_tpu_torch.ops import network, network_kernel, rates_kernel
 from grackle_tpu_torch.ops import tabulated_temp
 from grackle_tpu_torch.ops.common import block_scalars
 
 torch.set_num_threads(1)
 
-nk, ck, dk = network_kernel, cloudy_kernel, dust_kernel
+nk, ck, dk, rk = network_kernel, cloudy_kernel, dust_kernel, rates_kernel
 #: per kernel: its wrapper module, the source's struct, the slot lists
 #: by enum prefix, the source's names that the wrapper renames, the
 #: source's constants the library checks and the FMA flag
@@ -57,10 +58,14 @@ KERNELS = {
                {}, {"BLOCK": ck.BLOCK}, "-fmad=true"),
     "dust": (dk, "DustArgs", {"I_": dk.IN_SLOTS}, {}, {"BLOCK": dk.BLOCK},
              "-fmad=true"),
+    "rates": (rk, "RatesArgs",
+              {"I_": rk.IN_SLOTS, "S_": rk.SCALAR_SLOTS,
+               "T_": rk.TABLE_SLOTS},
+              {}, {"BLOCK": rk.BLOCK}, "-fmad=true"),
 }
 #: Library.want's key of each enum's slot count
 SLOT_KEYS = {"I_": "in slots", "O_": "out slots", "S_": "scalar slots",
-             "D_": "data slots"}
+             "D_": "data slots", "T_": "table slots"}
 _CTYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
            "double": ctypes.c_double, "const void*": ctypes.c_void_p,
            "void*": ctypes.c_void_p}
@@ -159,16 +164,18 @@ def test_source_and_flags(kernel):
 
 @pytest.fixture(scope="module")
 def flagship():
-    """The flagship context on the CPU and its network and dust inputs at
-    the first subcycle, 16 cells."""
+    """The flagship context on the CPU and its network, dust and rate
+    inputs at the first subcycle, 16 cells."""
     cd = chip_smoke.flagship_chem(64, "cpu")
     fields = chip_smoke.flagship_fields(cd, 16)
     [(_, inp)] = chip_smoke.capture_network_inputs(cd, fields, 1.0e-4, (0,))
     [(_, dust_args, init)] = chip_smoke.capture_dust_inputs(
         cd, fields, 1.0e-4, (0,))
+    [(_, rate_args)] = chip_smoke.capture_rate_inputs(cd, fields, 1.0e-4,
+                                                      (0,))
     net_args = (cd.context.config, inp["us"], inp["dt"], inp["f"],
                 inp["rs"], inp["cool_v"], inp["carry_v"], inp["h2_limit"])
-    return net_args, (dust_args, {"tdust_init": init})
+    return net_args, (dust_args, {"tdust_init": init}), rate_args
 
 
 @pytest.fixture(scope="module")
@@ -199,19 +206,27 @@ ROUTES = {"network": (nk, "network_update", "network_update_cuda",
                              "prepare_cooling", cloudy_cool,
                              "cloudy_cooling"),
           "dust": (dk, "dust_temperature", "dust_temperature_cuda",
-                   "prepare_launch", dk, "calc_tdust_1d")}
+                   "prepare_launch", dk, "calc_tdust_1d"),
+          "rates": (rk, "rate_lookup", "rate_lookup_cuda", "prepare_launch",
+                    rk, "twin")}
 
 
 def _call(route, flagship, tabulated):
-    net_args, dust_call = flagship
+    net_args, dust_call, rate_args = flagship
     return {"network": (net_args, {}), "cloudy": (tabulated[0], {}),
-            "cloudy cooling": (tabulated[1], {}), "dust": dust_call}[route]
+            "cloudy cooling": (tabulated[1], {}), "dust": dust_call,
+            "rates": (rate_args, {})}[route]
 
 
 def _flat(out):
+    """The tensors of a result (dicts, tuples and dataclasses of them)."""
+    if dataclasses.is_dataclass(out):
+        out = {f.name: getattr(out, f.name) for f in dataclasses.fields(out)}
     if isinstance(out, dict):
         return [t for v in out.values() for t in _flat(v)]
-    return list(out) if isinstance(out, tuple) else [out]
+    if isinstance(out, tuple):
+        return [t for v in out for t in _flat(v)]
+    return [] if out is None else [out]
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
@@ -282,11 +297,11 @@ def test_registry(monkeypatch):
     """Every library is in kernel_lib's registry, under its own name;
     zero_counts clears every host count; count_replays arms nothing off
     the card."""
-    libraries = (nk.library, ck.library, dk.library)
+    libraries = (nk.library, ck.library, dk.library, rk.library)
     assert all(any(lib is x for x in kernel_lib.LIBRARIES)
                for lib in libraries)
     assert set(kernel_lib.executed()) == {
-        "network kernel", "Cloudy kernel", "dust kernel"}
+        "network kernel", "Cloudy kernel", "dust kernel", "rate kernel"}
     for lib in kernel_lib.LIBRARIES:
         monkeypatch.setattr(lib, "launches", collections.Counter())
         monkeypatch.setattr(lib, "recorded", collections.Counter())

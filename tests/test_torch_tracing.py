@@ -81,3 +81,13 @@ def test_dust_block_counts_nothing_off_a_capture(monkeypatch):
     assert tracing.dust_nodes_per_subcycle() is None
     monkeypatch.setattr(tracing, "dust_nodes", 1)
     assert tracing.dust_nodes_per_subcycle() == 1
+
+
+def test_rates_block_counts_nothing_off_a_capture(monkeypatch):
+    monkeypatch.setattr(tracing, "rates_nodes", None)
+    with tracing.rates_block(torch.zeros(4)):
+        torch.zeros(4) + 1.0
+    assert tracing.rates_nodes is None
+    assert tracing.rates_nodes_per_subcycle() is None
+    monkeypatch.setattr(tracing, "rates_nodes", 1)
+    assert tracing.rates_nodes_per_subcycle() == 1
